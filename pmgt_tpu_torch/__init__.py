@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the PMGT serving path for NVIDIA Hopper (H100).
+"""PyTorch/CUDA port of PMGT pre-training and serving for NVIDIA Hopper
+(H100).
 
 A second package beside the JAX reference ``pmgt_tpu``; it mirrors that
 package's layout (``core``, ``graph``, ``data``, ``sampling``, ``ops``,
@@ -6,11 +7,13 @@ package's layout (``core``, ``graph``, ``data``, ``sampling``, ``ops``,
 but imports only ``torch`` and ``numpy`` — never JAX and never a module of
 ``pmgt_tpu``.
 
-This slice covers the forward-only serving path: validation pair-AUC
-(``PMGTTask.evaluate``) and per-node CLS embedding export
-(``PMGTTask.export_embeddings``). The one TPU kernel on that path, the
-seq-major dual-attention forward, is a hand-written CUDA kernel
-(``ops/csrc/dual_attention_fwd.cu``) built with ``nvcc`` at first use.
+It covers the serving path, validation pair-AUC (``PMGTTask.evaluate``)
+and per-node CLS embedding export (``PMGTTask.export_embeddings``), and
+the pre-training steps (``PMGTTask.train_epoch``: GSR + NFR, dropout,
+AdamW). The seq-major dual attention runs as two hand-written CUDA
+kernels, the forward (``ops/csrc/dual_attention_fwd.cu``) and the
+backward (``ops/csrc/dual_attention_bwd.cu``), built with ``nvcc`` at
+first use.
 
 Entry points run on ``device="cuda"`` by default and raise when no GPU is
 present; pass ``device="cpu"`` to run the plain PyTorch versions.

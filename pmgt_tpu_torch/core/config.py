@@ -6,8 +6,8 @@ value names: ``"pallas"`` selects the hand-written dual-attention kernel
 route (``ops.dual_attention.dual_attention_sm``), ``"xla"`` the plain
 batch-major PyTorch formulation (``models.pmgt.dual_attention_plain``).
 
-``TrainArgs`` carries only the fields the serving slice reads; the other
-training flags arrive with the training slice.
+``TrainArgs`` carries the fields the serving and training slices read;
+the engine's flags (checkpoints, run registry, CLI) arrive with it.
 """
 from __future__ import annotations
 
@@ -143,14 +143,26 @@ class SamplingConfig:
 
 @dataclass
 class TrainArgs:
-    """The run arguments the serving slice reads. ``extra`` holds the
-    workload-specific flags (hidden_size, hop_sampling_sizes, ...),
-    readable as attributes."""
+    """The run arguments the serving and training slices read, with the
+    JAX package's defaults. ``extra`` holds the workload-specific flags
+    (hidden_size, hop_sampling_sizes, ...), readable as attributes."""
 
     seed: int = 0
     valid_size: float = 0.2
-    test_batch_size: int = 256
+    num_epochs: int = 20
+    optim: str = "adamw"  # {"adamw", "sgd"}
+    lr: float = 1e-3
+    decay: float = 1e-2
     mp_enabled: bool = False  # bf16 compute policy
+    early: int = 5
+    early_criterion: str = "loss"
+    train_batch_size: int = 256
+    test_batch_size: int = 256
+    gradient_max_norm: Optional[float] = None
+    accumulation_step: int = 1
+    scheduler_warmup: Optional[float] = None
+    scheduler_type: Optional[str] = None
+    eval_interval: int = 1
     extra: Dict[str, Any] = field(default_factory=dict)
 
     def __getattr__(self, name: str) -> Any:

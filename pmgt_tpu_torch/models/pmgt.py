@@ -1,4 +1,4 @@
-"""PMGT encoder and pretraining model, forward path (counterpart of
+"""PMGT encoder and pretraining model (counterpart of
 ``pmgt_tpu/models/pmgt.py``).
 
 The residual stream runs seq-major [S, B, H] through the layers, as in the
@@ -11,14 +11,20 @@ through ``ops.dual_attention.dual_attention_sm`` (the hand-written CUDA
 kernel on a GPU, its plain version on the CPU); ``"xla"`` runs the plain
 batch-major formulation ``dual_attention_plain``.
 
-This slice is forward-only and deterministic: dropout, the bf16 compute
-policy, relative-position attention, ``head_mask``,
-``output_attentions``, NFR corruption and the NFR loss raise
+Training (``deterministic=False``) needs a ``torch.Generator`` on the
+model's device; there is no global RNG and no ``nn.Dropout``. One forward
+draws, in this order: the NFR corruption (``_corrupt``: replace uniforms,
+random ids, mask uniforms), then the embeddings' dropout mask, then per
+layer the attention keep masks m1 and m2 (``draw_keep_masks``, one pair
+for both attention routes), the ``attention_output`` dropout mask and the
+``output`` dropout mask. Dropout is flax's: ``where(u < keep, x / keep,
+0)``. Gradient checkpointing, the bf16 compute policy, relative-position
+attention, ``head_mask`` and ``output_attentions`` raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,7 +32,8 @@ from torch import nn
 
 from pmgt_tpu_torch.core.config import PMGTConfig
 from pmgt_tpu_torch.core.quant import dense_table, table_rows
-from pmgt_tpu_torch.ops.dual_attention import dual_attention_sm
+from pmgt_tpu_torch.graph.container import NUM_SPECIAL_NODES
+from pmgt_tpu_torch.ops.dual_attention import draw_keep_masks, dual_attention_sm
 from pmgt_tpu_torch.sampling.pairs import PretrainBatch
 
 
@@ -36,11 +43,20 @@ def _additive_mask(attention_mask: torch.Tensor, dtype: torch.dtype) -> torch.Te
     return ((1.0 - attention_mask) * big_neg).to(dtype)
 
 
-def _deterministic_only(deterministic: bool) -> None:
-    if not deterministic:
-        raise NotImplementedError(
-            "dropout (deterministic=False) comes with the training path"
-        )
+def dropout(
+    x: torch.Tensor,
+    rate: float,
+    deterministic: bool,
+    generator: Optional[torch.Generator],
+) -> torch.Tensor:
+    """flax ``nn.Dropout``: ``where(uniform < 1 - rate, x / (1 - rate),
+    0)``, one uniform per element from ``generator``; the identity when
+    ``deterministic`` or ``rate == 0`` (nothing is drawn then)."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    m = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(m, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class PMGTEmbeddings(nn.Module):
@@ -80,8 +96,8 @@ class PMGTEmbeddings(nn.Module):
         feat_embeds: Sequence[torch.Tensor],
         deterministic: bool = True,
         projected: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        _deterministic_only(deterministic)
         seq_len = feat_embeds[0].shape[1]
         if projected:
             proj = [x.to(torch.float32) for x in feat_embeds]
@@ -101,7 +117,10 @@ class PMGTEmbeddings(nn.Module):
         role_ids = torch.ones(seq_len, dtype=torch.int64, device=pos.device)
         role_ids[0] = 0
         role = self.role_embeddings[role_ids]
-        return self.norm(fused + pos[None] + role[None])
+        embeds = self.norm(fused + pos[None] + role[None])
+        return dropout(
+            embeds, self.config.hidden_dropout_prob, deterministic, generator
+        )
 
 
 def dual_attention_plain(
@@ -111,10 +130,14 @@ def dual_attention_plain(
     ctx: torch.Tensor,
     additive_mask: Optional[torch.Tensor],
     beta: float,
+    keep_masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    keep: float = 1.0,
 ) -> torch.Tensor:
     """Plain batch-major dual attention (the math of the JAX package's
-    ``dual_attention_xla``), deterministic. Inputs [B, h, S, d], output
-    (β·softmax(1 − cos(c, c) + I + M) + (1 − β)·softmax(qkᵀ/√d + M))·v."""
+    ``dual_attention_xla``). Inputs [B, h, S, d], output
+    (β·softmax(1 − cos(c, c) + I + M) + (1 − β)·softmax(qkᵀ/√d + M))·v.
+    ``keep_masks`` (m1, m2), bool [B, h, S, S], apply attention dropout as
+    ``where(m, P / keep, 0)``."""
     s, d = query.shape[-2], query.shape[-1]
     ctx_norm = torch.linalg.norm(ctx, dim=-1, keepdim=True)  # [B,h,S,1]
     norm_outer = ctx_norm @ ctx_norm.transpose(-1, -2)
@@ -129,6 +152,10 @@ def dual_attention_plain(
     if additive_mask is not None:
         scores2 = scores2 + additive_mask
     probs2 = torch.softmax(scores2, dim=-1)
+    if keep_masks is not None:
+        zero = torch.zeros((), dtype=probs1.dtype, device=probs1.device)
+        probs1 = torch.where(keep_masks[0], probs1 / keep, zero)
+        probs2 = torch.where(keep_masks[1], probs2 / keep, zero)
     probs = beta * probs1 + (1.0 - beta) * probs2
     return probs @ value
 
@@ -151,8 +178,8 @@ class PMGTSelfAttention(nn.Module):
         hidden_sm: torch.Tensor,  # [S, B, H]
         additive_bs: torch.Tensor,  # [B, S]
         deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        _deterministic_only(deterministic)
         cfg = self.config
         s, b, _ = hidden_sm.shape
         h, d = cfg.num_attention_heads, cfg.head_dim
@@ -162,18 +189,28 @@ class PMGTSelfAttention(nn.Module):
             lin(flat)
             for lin in (self.query, self.key, self.value, self.ctx_attention)
         )
+        rate = cfg.attention_probs_dropout_prob
+        use_dropout = not deterministic and rate > 0.0
+        keep = 1.0 - rate
+        # One pair of [S, B*h, S] keep masks for either route, so both see
+        # the same dropout pattern.
+        m1 = m2 = None
+        if use_dropout:
+            m1, m2 = draw_keep_masks(s, b * h, keep, generator)
         if cfg.attention_impl == "pallas":
             fold = lambda x: x.reshape(s, b * h, d)  # noqa: E731
             mask_nb = additive_bs[:, None, :].expand(b, h, s).reshape(b * h, s)
             out = dual_attention_sm(
                 fold(query), fold(key), fold(value), fold(ctx), mask_nb,
-                beta=cfg.beta,
+                m1, m2, cfg.beta, keep, use_dropout,
             )
             return out.reshape(s, b, cfg.all_head_size)
-        to_bm = lambda x: x.reshape(s, b, h, d).permute(1, 2, 0, 3)  # noqa: E731
+        to_bm = lambda x: x.reshape(s, b, h, -1).permute(1, 2, 0, 3)  # noqa: E731
         out = dual_attention_plain(
             to_bm(query), to_bm(key), to_bm(value), to_bm(ctx),
             additive_bs[:, None, None, :], beta=cfg.beta,
+            keep_masks=(to_bm(m1), to_bm(m2)) if use_dropout else None,
+            keep=keep,
         )
         # [B, h, S, d] -> [S, B, h*d]
         return out.permute(2, 0, 1, 3).reshape(s, b, cfg.all_head_size)
@@ -185,6 +222,7 @@ class PMGTLayer(nn.Module):
 
     def __init__(self, cfg: PMGTConfig):
         super().__init__()
+        self.config = cfg
         self.self_attention = PMGTSelfAttention(cfg)
         self.attention_output = nn.Linear(cfg.all_head_size, cfg.hidden_size)
         self.attention_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
@@ -197,15 +235,19 @@ class PMGTLayer(nn.Module):
         hidden: torch.Tensor,  # [S, B, H]
         additive_bs: torch.Tensor,
         deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        attn = self.self_attention(hidden, additive_bs, deterministic)
+        rate = self.config.hidden_dropout_prob
+        attn = self.self_attention(hidden, additive_bs, deterministic, generator)
         s, b, _ = attn.shape
         attn = self.attention_output(attn.reshape(s * b, attn.shape[-1]))
+        attn = dropout(attn, rate, deterministic, generator)
         hidden = self.attention_norm(
             attn + hidden.reshape(s * b, hidden.shape[-1])
         )
         inter = F.gelu(self.intermediate(hidden), approximate="none")
-        out = self.output_norm(self.output(inter) + hidden)
+        out = dropout(self.output(inter), rate, deterministic, generator)
+        out = self.output_norm(out + hidden)
         return out.reshape(s, b, -1)
 
 
@@ -223,6 +265,8 @@ class PMGTModel(nn.Module):
                 f"position_embedding_type {cfg.position_embedding_type!r}: "
                 "only 'absolute' is ported yet"
             )
+        if cfg.gradient_checkpointing:
+            raise NotImplementedError("gradient checkpointing is not ported yet")
         self.config = cfg
         self.embeddings = PMGTEmbeddings(cfg)
         self.layers = nn.ModuleList(
@@ -243,23 +287,27 @@ class PMGTModel(nn.Module):
         head_mask: Optional[torch.Tensor] = None,
         output_hidden_states: bool = False,
         output_attentions: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        """Returns the last hidden state [B, S, H]."""
+        """Returns the last hidden state [B, S, H]. ``deterministic=False``
+        (dropout) needs ``generator``."""
         if head_mask is not None or output_hidden_states or output_attentions:
             raise NotImplementedError(
                 "head_mask / output_hidden_states / output_attentions are "
                 "not ported yet"
             )
+        if not deterministic and generator is None:
+            raise ValueError("deterministic=False needs a torch.Generator")
         b, s = feat_embeds[0].shape[:2]
         if attention_mask is None:
             attention_mask = torch.ones(
                 (b, s), dtype=torch.float32, device=feat_embeds[0].device
             )
         additive_bs = _additive_mask(attention_mask, torch.float32)  # [B, S]
-        hidden = self.embeddings(feat_embeds, deterministic, projected)
+        hidden = self.embeddings(feat_embeds, deterministic, projected, generator)
         hidden = hidden.transpose(0, 1)  # seq-major [S, B, H]
         for layer in self.layers:
-            hidden = layer(hidden, additive_bs, deterministic)
+            hidden = layer(hidden, additive_bs, deterministic, generator)
         return hidden.transpose(0, 1)
 
 
@@ -307,15 +355,22 @@ class PretrainOutput(NamedTuple):
 
 
 class PMGTForPreTraining(nn.Module):
-    """PMGT with the GSR head (and the NFR projections, whose loss comes
-    with the training path). The frozen feature tables are inputs, not
-    parameters: pass ``feat_tables`` (list of [N+2, F_m] tensors) to every
-    call."""
+    """PMGT with the GSR and NFR pre-training heads. The frozen feature
+    tables are inputs, not parameters: pass ``feat_tables`` (list of
+    [N+2, F_m] tensors) to every call."""
 
-    def __init__(self, config: PMGTConfig, node_size: int):
+    def __init__(
+        self,
+        config: PMGTConfig,
+        node_size: int,
+        random_node_ratio: float = 0.2 * 0.1,
+        mask_node_ratio: float = 0.2 * 0.8,
+    ):
         super().__init__()
         self.config = config
         self.node_size = node_size
+        self.random_node_ratio = random_node_ratio
+        self.mask_node_ratio = mask_node_ratio
         self.bert = PMGTModel(config)
         self.nfr_projections = nn.ModuleList(
             nn.Linear(config.hidden_size, f) for f in config.feat_hidden_sizes
@@ -357,20 +412,22 @@ class PMGTForPreTraining(nn.Module):
         attention_mask: torch.Tensor,
         deterministic: bool = True,
         proj_tables: Optional[Sequence[torch.Tensor]] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """Encoder pass over [B, S] node-id sequences → [B, S, H]."""
         if self.config.fusion_strategy == "gather_rows":
             feat_embeds = [
                 table_rows(t, node_ids, torch.float32) for t in feat_tables
             ]
-            return self.bert(
-                feat_embeds, attention_mask, deterministic, projected=False
-            )
-        if proj_tables is None:
-            proj_tables = self.project_tables(feat_tables)
-        feat_embeds = [t[node_ids] for t in proj_tables]
+            projected = False
+        else:
+            if proj_tables is None:
+                proj_tables = self.project_tables(feat_tables)
+            feat_embeds = [t[node_ids] for t in proj_tables]
+            projected = True
         return self.bert(
-            feat_embeds, attention_mask, deterministic, projected=True
+            feat_embeds, attention_mask, deterministic, projected,
+            generator=generator,
         )
 
     def forward(
@@ -380,30 +437,100 @@ class PMGTForPreTraining(nn.Module):
         deterministic: bool = True,
         compute_nfr: bool = False,
         proj_tables: Optional[Sequence[torch.Tensor]] = None,
+        generator: Optional[torch.Generator] = None,
+        corruption: Optional[Tuple[torch.Tensor, ...]] = None,
     ) -> PretrainOutput:
-        """One encoder pass over the target and pair lanes → GSR loss and
-        pair logits."""
-        if compute_nfr:
-            raise NotImplementedError(
-                "NFR (_corrupt / _nfr_loss) comes with the training path"
-            )
+        """One encoder pass over the lanes ``[targets | pairs | masked]``
+        (the masked lane only with ``compute_nfr``) → GSR loss, NFR loss,
+        ``loss = gsr + nfr`` and the pair logits. ``generator`` feeds the
+        corruption draws (or pass them as ``corruption``, see ``_corrupt``)
+        and then the dropout masks."""
         b, p, s = batch.pair_ids.shape
-        all_ids = torch.cat([batch.target_ids, batch.pair_ids.reshape(b * p, s)])
-        all_mask = torch.cat(
-            [batch.target_mask, batch.pair_mask.reshape(b * p, s)]
-        )
+        lanes = [batch.target_ids, batch.pair_ids.reshape(b * p, s)]
+        mask_lanes = [batch.target_mask, batch.pair_mask.reshape(b * p, s)]
+        if compute_nfr:
+            masked_ids, nfr_pos_mask, nfr_target_ids = self._corrupt(
+                batch.target_ids, generator, corruption
+            )
+            lanes.append(masked_ids)
+            mask_lanes.append(batch.target_mask)
         hidden = self.encode(
-            feat_tables, all_ids, all_mask, deterministic, proj_tables
+            feat_tables, torch.cat(lanes), torch.cat(mask_lanes),
+            deterministic, proj_tables, generator,
         )
         target_cls = hidden[:b, 0]
-        pair_cls = hidden[b:, 0].reshape(b, p, -1)
+        pair_cls = hidden[b : b + b * p, 0].reshape(b, p, -1)
         gsr, logits = gsr_loss_fn(
             target_cls, pair_cls, batch.labels, batch.pair_valid
         )
+        if compute_nfr:
+            nfr = self._nfr_loss(
+                feat_tables, hidden[b + b * p :], nfr_pos_mask, nfr_target_ids
+            )
+        else:
+            nfr = torch.zeros((), dtype=gsr.dtype, device=gsr.device)
         return PretrainOutput(
-            loss=gsr,
+            loss=gsr + nfr,
             gsr_loss=gsr,
-            nfr_loss=torch.zeros((), dtype=gsr.dtype, device=gsr.device),
+            nfr_loss=nfr,
             logits=logits,
             target_cls=target_cls,
         )
+
+    def _corrupt(
+        self,
+        target_ids: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        draws: Optional[Tuple[torch.Tensor, ...]] = None,
+    ):
+        """Random node replacement + masking for NFR. Never touches
+        position 0 (the target) or padding; the NFR targets are the ids
+        AFTER replacement. The replace and mask draws are independent, so
+        a slot can be replaced and then masked (as in the reference).
+
+        ``draws`` = (rand1, random_ids, rand2), each [B, S-1]: the replace
+        uniforms, the random ids in [2, N+2) and the mask uniforms; without
+        them the three are drawn from ``generator`` in that order.
+        Returns (masked_ids [B, S], pos_mask [B, S-1] f32, targets
+        [B, S-1])."""
+        ctx = target_ids[:, 1:]
+        dev = target_ids.device
+        if draws is None:
+            if generator is None:
+                raise ValueError("NFR corruption needs a torch.Generator or draws")
+            rand1 = torch.rand(ctx.shape, generator=generator, device=dev)
+            random_ids = torch.randint(
+                NUM_SPECIAL_NODES, self.node_size + NUM_SPECIAL_NODES,
+                ctx.shape, generator=generator, device=dev,
+            )
+            rand2 = torch.rand(ctx.shape, generator=generator, device=dev)
+        else:
+            rand1, random_ids, rand2 = (torch.as_tensor(x, device=dev) for x in draws)
+        replace = (rand1 < self.random_node_ratio) & (ctx != 0)
+        ctx_replaced = torch.where(replace, random_ids.to(ctx.dtype), ctx)
+        masked = (rand2 < self.mask_node_ratio) & (ctx_replaced != 0)
+        ctx_masked = torch.where(masked, torch.ones_like(ctx_replaced), ctx_replaced)
+        masked_ids = torch.cat([target_ids[:, :1], ctx_masked], dim=1)
+        return masked_ids, masked.to(torch.float32), ctx_replaced
+
+    def _nfr_loss(
+        self,
+        feat_tables: Sequence[torch.Tensor],
+        masked_hidden: torch.Tensor,  # [B, S, H]
+        pos_mask: torch.Tensor,  # [B, S-1], 1 where a context slot was masked
+        target_ids: torch.Tensor,  # [B, S-1] post-replacement ids
+    ) -> torch.Tensor:
+        """Node Feature Reconstruction: per modality, project the masked
+        positions' hidden states, squared error against the original
+        feature rows summed over F in f32, masked mean with denominator
+        ``max(count * F, 1)``; then the mean over modalities."""
+        ctx_hidden = masked_hidden[:, 1:]
+        count = torch.sum(pos_mask)
+        losses = []
+        for proj, table in zip(self.nfr_projections, feat_tables):
+            pred = proj(ctx_hidden)  # [B, S-1, F]
+            target = table_rows(table, target_ids, pred.dtype)
+            sq = torch.sum((pred - target) ** 2, dim=-1, dtype=torch.float32)
+            denom = torch.clamp(count * pred.shape[-1], min=1.0)
+            losses.append(torch.sum(sq * pos_mask) / denom)
+        return torch.mean(torch.stack(losses))

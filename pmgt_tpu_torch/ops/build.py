@@ -28,7 +28,7 @@ BUILD_DIR = os.path.join(
     "build",
     "pmgt_tpu_torch",
 )
-KERNELS = ("dual_attention_fwd",)
+KERNELS = ("dual_attention_fwd", "dual_attention_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,6 +1,6 @@
-"""PMGT serving workload: validation pair-AUC and per-node embedding
-export (counterpart of the forward-only parts of
-``pmgt_tpu/tasks/pmgt_task.py``).
+"""PMGT pre-training workload: training steps, validation pair-AUC and
+per-node embedding export (counterpart of ``pmgt_tpu/tasks/pmgt_task.py``
+without its engine, checkpoints and CLI).
 
 Per phase (``valid``, ``test``, ``inference``) the task draws ONE context
 per node for the whole graph (``sample_all_contexts``) and, for the
@@ -10,6 +10,17 @@ and export are then pure gathers plus encoder passes over chunks of
 ``test_batch_size`` targets, so their metrics are a function of the
 parameters alone.
 
+Training runs the JAX package's cached mode: at each epoch start
+(``on_epoch_start``) one context per node and one training pair table
+(P = ``max_total_samples``) are drawn into a single evicting slot. An
+epoch walks the shuffled schedule (``_epoch_schedule``) in full batches;
+each step gets its own generator, seeded ``(seed * 7_919 + step) %
+2**32``, which draws the NFR corruption and then the dropout masks
+(``models/pmgt.py``) for each micro-batch in turn. Gradients are the mean
+over ``accumulation_step`` micro-batches; AdamW, the schedule and the clip
+come from ``train/optim.py``. ``train_epoch`` returns the per-step losses
+as a device tensor and never waits on the device.
+
 Torch generators give other streams than JAX keys: the seeds are the same
 integers and the distributions are the same, the draws are not.
 """
@@ -17,7 +28,7 @@ from __future__ import annotations
 
 import logging
 import math
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,6 +49,7 @@ from pmgt_tpu_torch.sampling.pairs import (
     sample_all_contexts,
     sample_all_pairs,
 )
+from pmgt_tpu_torch.train.optim import make_optimizer
 
 logger = logging.getLogger("pmgt_tpu_torch")
 
@@ -66,7 +78,8 @@ def chunk_eval_inputs(chunk: int, arrays, pad_values=None):
 
 
 class PMGTTask:
-    """Serving-side PMGT task: ``evaluate`` and ``export_embeddings``.
+    """PMGT task: ``train_epoch`` / ``train_step``, ``evaluate`` and
+    ``export_embeddings``.
 
     ``device`` defaults to ``"cuda"`` and raises when no GPU is present;
     pass ``device="cpu"`` to run the plain PyTorch versions. Parameters
@@ -89,6 +102,15 @@ class PMGTTask:
         self.train_nodes = np.asarray(train_nodes, np.int64)
         self.valid_nodes = np.asarray(valid_nodes, np.int64)
         extra = args.extra
+        if args.train_batch_size % args.accumulation_step:
+            raise ValueError(
+                f"train_batch_size {args.train_batch_size} must be divisible "
+                f"by accumulation_step {args.accumulation_step}"
+            )
+        if not extra.get("ctx_cache", True):
+            raise NotImplementedError(
+                "per-step sampling (ctx_cache=False) is not ported yet"
+            )
 
         feat_dims = tuple(int(e.shape[-1]) for e in artifacts.feat_init_embs)
         self.config = PMGTConfig(
@@ -116,9 +138,25 @@ class PMGTTask:
             min_neg_samples=extra.get("min_neg_samples", 5),
             num_total=artifacts.graph.num_total,
         )
-        self.model = PMGTForPreTraining(self.config, artifacts.num_nodes)
+        self.model = PMGTForPreTraining(
+            self.config,
+            artifacts.num_nodes,
+            random_node_ratio=extra.get("random_node_ratio", 0.02),
+            mask_node_ratio=extra.get("mask_node_ratio", 0.16),
+        )
         self.model.init_weights(torch.Generator().manual_seed(int(args.seed)))
-        self.model.to(self.device).eval()
+        self.model.to(self.device).train()
+        steps_per_epoch = max(len(self.train_nodes) // args.train_batch_size, 1)
+        self.optimizer = make_optimizer(
+            self.model,
+            optim=args.optim,
+            lr=args.lr,
+            decay=args.decay,
+            scheduler_type=args.scheduler_type,
+            total_steps=steps_per_epoch * args.num_epochs,
+            warmup_ratio=args.scheduler_warmup,
+            gradient_max_norm=args.gradient_max_norm,
+        )
 
         self.graph = artifacts.graph.to(self.device)
         self.feat_tables = [
@@ -127,6 +165,10 @@ class PMGTTask:
         ]
         # One fixed draw per phase tag, kept for the task's lifetime.
         self._phase_ctx_cache: Dict[Tuple, PhaseCtx] = {}
+        # The training draw: one evicting slot, retagged each epoch.
+        self._train_ctx: Optional[PhaseCtx] = None
+        self._train_ctx_tag: Optional[Tuple] = None
+        self._step_count = 0
 
     # ------------------------------------------------------------------
     def _phase_seed(self, tag) -> int:
@@ -137,32 +179,120 @@ class PMGTTask:
         return (self.args.seed * 104_729 + phase_id * 2_000_003 + step) % 2**32
 
     def _draw_ctx(self, tag) -> PhaseCtx:
-        """Contexts for every node, then (eval splits only) the eval pair
-        table, drawn in that order from one generator seeded per phase."""
+        """Contexts for every node, then the phase's pair table (training
+        pairs for ``("train", epoch)``, eval pairs for the eval splits,
+        none for export), drawn in that order from one generator seeded
+        per phase."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self._phase_seed(tag))
         n_total = self.sampling.num_total
         ctx_ids, ctx_mask = sample_all_contexts(
             self.graph, self.sampling, n_total, gen
         )
-        if tag[0] in ("valid", "test"):
-            pairs = sample_all_pairs(
-                self.graph, self.sampling, n_total, is_training=False,
-                generator=gen,
-            )
-        elif tag[0] == "inference":  # export never consumes pairs
+        if tag[0] == "inference":  # export never consumes pairs
             pairs = None
         else:
-            raise NotImplementedError(
-                f"phase {tag[0]!r}: training comes with the training path"
+            pairs = sample_all_pairs(
+                self.graph, self.sampling, n_total,
+                is_training=tag[0] == "train", generator=gen,
             )
         return ctx_ids, ctx_mask, pairs
 
     def _get_ctx(self, tag) -> PhaseCtx:
-        """The phase's cached draw (drawn on first use)."""
+        """The phase's cached draw (drawn on first use). ``("train",
+        epoch)`` lives in one evicting slot; the eval and export draws are
+        kept apart, so a training retag never evicts them."""
+        if tag[0] == "train":
+            if self._train_ctx_tag != tag:
+                self._train_ctx = self._draw_ctx(tag)
+                self._train_ctx_tag = tag
+            return self._train_ctx
         if tag not in self._phase_ctx_cache:
             self._phase_ctx_cache[tag] = self._draw_ctx(tag)
         return self._phase_ctx_cache[tag]
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+    def on_epoch_start(self, epoch: int) -> None:
+        """Refresh the training draw: one fresh context and pair row per
+        node per epoch."""
+        self._get_ctx(("train", epoch))
+
+    def on_resume(self, global_step: int) -> None:
+        """Continue the per-step generator seeds where an interrupted run
+        left off."""
+        self._step_count = int(global_step)
+
+    def _epoch_schedule(self, epoch: int) -> np.ndarray:
+        """The epoch's shuffled target ids (the JAX package's derivation)."""
+        ids = self.train_nodes.copy()
+        rng = np.random.default_rng(self.args.seed * 100_003 + epoch)
+        rng.shuffle(ids)
+        return ids
+
+    def train_batches(self, epoch: int) -> Iterator[Tuple[torch.Tensor, torch.Generator]]:
+        """(targets [train_batch_size] on the device, the step's
+        generator) for each full batch of the epoch's schedule. The
+        schedule goes to the device in one copy."""
+        bs = self.args.train_batch_size
+        ids = self._epoch_schedule(epoch)
+        n_full = len(ids) // bs
+        if n_full == 0:
+            return
+        sched = torch.as_tensor(
+            ids[: n_full * bs].reshape(n_full, bs), device=self.device
+        )
+        for i in range(n_full):
+            self._step_count += 1
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed((self.args.seed * 7_919 + self._step_count) % 2**32)
+            yield sched[i], gen
+
+    def accumulate_gradients(
+        self, targets: torch.Tensor, generator: torch.Generator
+    ) -> Dict[str, torch.Tensor]:
+        """Zero the gradients, then forward and backward over the
+        ``accumulation_step`` micro-batches of ``targets`` in order, each
+        loss scaled by 1/accumulation_step, so ``.grad`` holds the mean of
+        the micro-batch gradients. Returns the mean loss, gsr and nfr as
+        device scalars."""
+        if self._train_ctx is None:
+            self._get_ctx(("train", 0))
+        ctx_ids, ctx_mask, pairs = self._train_ctx
+        accum = self.args.accumulation_step
+        self.optimizer.zero_grad()
+        total = None
+        for micro in targets.reshape(accum, -1):
+            batch = make_pretrain_batch_cached(ctx_ids, ctx_mask, micro, pairs)
+            out = self.model(
+                self.feat_tables, batch, deterministic=False, compute_nfr=True,
+                generator=generator,
+            )
+            (out.loss / accum).backward()
+            part = torch.stack([out.loss, out.gsr_loss, out.nfr_loss]).detach()
+            total = part if total is None else total + part
+        loss, gsr, nfr = total / accum
+        return {"loss": loss, "gsr": gsr, "nfr": nfr}
+
+    def train_step(self, batch) -> Dict[str, torch.Tensor]:
+        """One optimizer step on ``batch`` = (targets, generator) from
+        ``train_batches``. Returns the step's mean loss, gsr and nfr as
+        device scalars."""
+        targets, generator = batch
+        metrics = self.accumulate_gradients(targets, generator)
+        self.optimizer.step()
+        return metrics
+
+    def train_epoch(self, epoch: int) -> torch.Tensor:
+        """Refresh the training draw and take every full step of the
+        epoch. Returns the per-step losses [steps] on the device; nothing
+        inside waits for the device."""
+        self.on_epoch_start(epoch)
+        losses = [self.train_step(b)["loss"] for b in self.train_batches(epoch)]
+        if not losses:
+            return torch.zeros((0,), device=self.device)
+        return torch.stack(losses)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -234,7 +364,7 @@ class PMGTTask:
 
 
 # ----------------------------------------------------------------------
-# workload contract (the forward-only parts)
+# workload contract (the data split)
 # ----------------------------------------------------------------------
 
 def train_valid_split(nodes: np.ndarray, valid_size: float, seed: int):

@@ -1,7 +1,8 @@
 """The port's configuration, metrics and import boundary.
 
 - ``PMGTConfig`` / ``SamplingConfig`` carry the JAX package's fields and
-  defaults, field by field; ``TrainArgs`` the ones the serving slice reads.
+  defaults, field by field; ``TrainArgs`` the ones the serving and
+  training slices read.
 - ``roc_auc`` / ``stable_sigmoid`` agree with the JAX package's copies.
 - ``pmgt_tpu_torch`` (and ``chip_smoke.py``) import neither JAX nor any
   module of ``pmgt_tpu``: checked on the source and by importing the
@@ -55,7 +56,12 @@ def test_config_properties_match():
 
 def test_train_args_subset_defaults():
     j, t = _fields(jconfig.TrainArgs), _fields(tconfig.TrainArgs)
-    assert set(t) == {"seed", "valid_size", "test_batch_size", "mp_enabled", "extra"}
+    assert set(t) == {
+        "seed", "valid_size", "num_epochs", "optim", "lr", "decay",
+        "mp_enabled", "early", "early_criterion", "train_batch_size",
+        "test_batch_size", "gradient_max_norm", "accumulation_step",
+        "scheduler_warmup", "scheduler_type", "eval_interval", "extra",
+    }
     assert all(t[k] == j[k] for k in t)
     args = tconfig.TrainArgs(extra={"hidden_size": 64})
     assert args.hidden_size == 64

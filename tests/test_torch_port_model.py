@@ -151,20 +151,27 @@ def test_params_from_flax_rejects_missing_and_extra_leaves(setup):
 
 
 def test_unported_options_raise(setup):
+    """Options not ported yet raise NotImplementedError; dropout and NFR
+    (ported with the training path) raise ValueError without the
+    generator they draw from."""
     _, params, tables = setup
     with pytest.raises(NotImplementedError):
         PMGTForPreTraining(PMGTConfig(**SMALL, position_embedding_type="relative_key"), 4)
     with pytest.raises(NotImplementedError):
         PMGTForPreTraining(PMGTConfig(**SMALL, dtype="bfloat16"), 4)
+    with pytest.raises(NotImplementedError):
+        PMGTForPreTraining(PMGTConfig(**SMALL, gradient_checkpointing=True), 4)
     model = _port_model(params)
     t = [torch.from_numpy(x) for x in tables]
     ids = torch.full((2, SEQ), 3)
     mask = torch.ones(2, SEQ)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="Generator"):
         model.encode(t, ids, mask, deterministic=False)
     with pytest.raises(NotImplementedError):
         model.bert([x[ids] for x in t], mask, output_attentions=True)
+    with pytest.raises(NotImplementedError):
+        model.bert([x[ids] for x in t], mask, head_mask=torch.ones(2))
     batch = PretrainBatch(ids, mask, ids[:, None], mask[:, None],
                           torch.ones(2, 1), torch.ones(2, 1))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="Generator"):
         model(t, batch, compute_nfr=True)
