@@ -46,9 +46,33 @@ Phases (any failure raises and the script exits non-zero):
    gradients of every parameter within 1e-4 * max|g| of that parameter,
    losses within 1e-4 relative; the plain route launches neither kernel.
 
-After each counted run, one pass under ``torch.profiler`` (one evaluate
-and one export; one training step) gives the device's busy time (summed
-kernel time) against the host wall time, and K1's and K2's parts of it.
+8. K3 and K4, the batch-major kernels (K1's and K2's kernels on
+   batch-major strides), through the public op ``dual_attention_pallas``
+   and ``DualAttentionBm`` against the plain batch-major versions: B·h =
+   3072 and 768 (h = 1, S = 6, d = 128) in f32 and, for K3, bf16, with and
+   without keep masks; a ragged B·h = 37; h = 2, d = 64. Tolerances as K1
+   and K2: 1e-5 * max(1, max|ref|) in f32 (each gradient), 2e-2 * max|out|
+   in bf16. Device times from CUDA-graph replay.
+9. The two layouts on real tensors: q/k/v/c of the encoder's first layer on
+   a 768-lane validation chunk; K1 seq-major against K3 on the same tensors
+   as [B, h, S, d], K2 against K4, within 1e-6 * max(1, max|out|). Then the
+   batch-major path: ``dual_attention_pallas`` forward (dropout on) and its
+   autograd backward, 3 calls, counts zeroed just before and read just
+   after: K3 == K4 == 3.
+10. ``train-pmgt`` end to end through the port's CLI (``main()`` in this
+    process) on the TG-shape data written with ``save_native``, default
+    model: 2 epochs (FINISHED, two ``val/auc`` rows, ``best.json``,
+    ``best/`` and ``last/``), a resume with ``--num-epochs 3`` (one epoch,
+    global step 99), ``--mode eval`` (finite test metrics, status
+    untouched), ``best`` restored here reproducing its logged ``val/auc``
+    within 1e-6, and ``--mode inference`` ([10834, 128] float32, finite).
+    Launches per invocation: K2 5 per step, K1 as many plus 5 per
+    evaluation chunk. Checkpoint save, resume and export times.
+
+After the serving and training runs, one pass under ``torch.profiler``
+(one evaluate and one export; one training step) gives the device's busy
+time (summed kernel time) against the host wall time, and K1's and K2's
+parts of it. The later phases open no profiler session.
 
 Float32 matmuls run in full f32 (TF32 off) on both paths. Detailed
 results also go to ``outputs/chip_smoke.json``. The last line of
@@ -74,8 +98,29 @@ K1_SOURCE = "pmgt_tpu_torch/ops/csrc/dual_attention_fwd.cu"
 K1_REPLACES = "pmgt_tpu/ops/dual_attention.py:381"  # _pallas_forward_sm
 K2_SOURCE = "pmgt_tpu_torch/ops/csrc/dual_attention_bwd.cu"
 K2_REPLACES = "pmgt_tpu/ops/dual_attention.py:444"  # _pallas_backward_sm
-KERNEL_NAMES = {"k1": "dual_attention_fwd_sm_kernel",
+K3_REPLACES = "pmgt_tpu/ops/dual_attention.py:100"  # _pallas_forward
+K4_REPLACES = "pmgt_tpu/ops/dual_attention.py:246"  # _pallas_backward
+# Kernel symbols in profiles. K3 is K1's kernel on batch-major strides and
+# K4 is K2's; the profiled phases run only the seq-major ones.
+KERNEL_NAMES = {"k1": "dual_attention_fwd_kernel",
                 "k2": "dual_attention_bwd_kernel"}
+
+
+def _counters():
+    """The four kernels' launch counters: K1, K2, K3, K4."""
+    from pmgt_tpu_torch.ops import dual_attention as da
+
+    return (da.dual_attention_sm, da.dual_attention_sm_backward,
+            da.dual_attention_bm_forward, da.dual_attention_bm_backward)
+
+
+def zero_launches() -> None:
+    for c in _counters():
+        c.launches = 0
+
+
+def read_launches() -> dict:
+    return dict(zip(("k1", "k2", "k3", "k4"), (c.launches for c in _counters())))
 
 
 def emit(obj) -> None:
@@ -330,6 +375,446 @@ def check_k2(s: int, n: int, d: int, keep_masks: bool) -> dict:
     return row
 
 
+def _bm_inputs(b: int, h: int, s: int, d: int, dtype, seed: int):
+    """q, k, v, c, g [B, h, S, d] on the card; the additive mask
+    [B, 1, 1, S] with masked keys in every sequence; one zero context row
+    (sequence ``zero_seq`` of the folded [B·h, S, d])."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, c, go = (torch.randn(b, h, s, d, generator=g, device="cuda").to(dtype)
+                      for _ in range(5))
+    zero_seq = (b * h) // 2
+    c.view(b * h, s, d)[zero_seq, s - 1] = 0.0
+    mask = torch.zeros(b, 1, 1, s, device="cuda")
+    n_ctx = torch.randint(0, s, (b,), generator=g, device="cuda")
+    keys = torch.arange(s, device="cuda")
+    mask[(keys[None, :] > n_ctx[:, None])[:, None, None, :]] = torch.finfo(torch.float32).min
+    return q, k, v, c, go, mask, zero_seq
+
+
+def _draw_bm_masks(n: int, s: int, seed: int):
+    """m1 then m2 [N, S, S], as ``dual_attention_pallas`` draws them from a
+    generator seeded ``seed`` on the card."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    m1 = torch.rand((n, s, s), generator=g, device="cuda") < 0.9
+    m2 = torch.rand((n, s, s), generator=g, device="cuda") < 0.9
+    return m1, m2
+
+
+def check_k3(b: int, h: int, d: int, dtype, keep_masks: bool, s: int = 6) -> dict:
+    """K3 through the public op ``dual_attention_pallas`` (dropout 0.1 from
+    a seeded generator when ``keep_masks``) against the plain batch-major
+    forward on the same masks; returns errors and times."""
+    import torch
+
+    from pmgt_tpu_torch.ops.dual_attention import (
+        dual_attention_bm_forward,
+        dual_attention_bm_reference,
+        dual_attention_pallas,
+    )
+
+    seed = b * 31 + h * 7 + d
+    q, k, v, c, _, mask4, _ = _bm_inputs(b, h, s, d, dtype, seed)
+    n = b * h
+    if keep_masks:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        out = dual_attention_pallas(q, k, v, c, mask4, 0.5, 0.1, False, gen)
+        m1, m2 = _draw_bm_masks(n, s, seed)
+    else:
+        out = dual_attention_pallas(q, k, v, c, mask4, 0.5, 0.1, True, None)
+        m1 = m2 = None
+    torch.cuda.synchronize()
+    fold = lambda x: x.reshape(n, s, d)  # noqa: E731
+    mask_bs = mask4.expand(b, h, 1, s).reshape(n, s)
+    args = (fold(q), fold(k), fold(v), fold(c), mask_bs, m1, m2, 0.5, 0.9, keep_masks)
+    ref = dual_attention_bm_reference(*(x.float() for x in args[:4]), *args[4:])
+    out = fold(out)
+    if out.shape != ref.shape or not bool(torch.isfinite(out).all()):
+        raise RuntimeError(f"K3 output malformed at B·h={n} h={h} d={d} {dtype}")
+    err = (out.float() - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    if dtype == torch.float32:
+        limit, tol = 1e-5 * max(1.0, scale), "max abs err <= 1e-5 * max(1, max|ref|)"
+    else:
+        limit, tol = 2e-2 * scale, "max abs err <= 2e-2 * max|out|"
+    row = {
+        "phase": "k3_check", "S": s, "B*h": n, "h": h, "d": d,
+        "dtype": str(dtype).replace("torch.", ""), "keep_masks": keep_masks,
+        "max_abs_err": err, "max_abs_out": scale, "limit": limit,
+        "tolerance": tol, "ok": err <= limit,
+        "ms": graph_ms(lambda: dual_attention_bm_forward(*args)),
+        "plain_ms": graph_ms(lambda: dual_attention_bm_reference(*args)),
+    }
+    row.update(k1_bound_ms(s, n, d, q.element_size(), 1 if keep_masks else 0))
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"K3 disagrees with its plain version: {row}")
+    return row
+
+
+def check_k4(b: int, h: int, d: int, keep_masks: bool, s: int = 6) -> dict:
+    """K4 as the backward of ``DualAttentionBm`` (autograd) against the
+    plain batch-major backward, f32, masked keys in every sequence and one
+    zero context row; returns errors and times."""
+    import torch
+
+    from pmgt_tpu_torch.ops.dual_attention import (
+        DualAttentionBm,
+        dual_attention_bm_backward,
+        dual_attention_bm_backward_reference,
+    )
+
+    seed = b * 13 + h * 5 + d
+    q, k, v, c, go, mask4, zero_seq = _bm_inputs(b, h, s, d, torch.float32, seed)
+    n = b * h
+    fold = lambda x: x.reshape(n, s, d)  # noqa: E731
+    q, k, v, c, go = map(fold, (q, k, v, c, go))
+    mask_bs = mask4.expand(b, h, 1, s).reshape(n, s)
+    m1, m2 = _draw_bm_masks(n, s, seed) if keep_masks else (None, None)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v, c)]
+    out = DualAttentionBm.apply(*leaves, mask_bs, m1, m2, 0.5, 0.9, keep_masks)
+    got = torch.autograd.grad(out, leaves, go)
+    torch.cuda.synchronize()
+    args = (q, k, v, c, mask_bs, m1, m2, go, 0.5, 0.9, keep_masks)
+    want = dual_attention_bm_backward_reference(*args)
+    errs, oks = {}, []
+    for name, a, b_ in zip(("dq", "dk", "dv", "dc"), got, want):
+        if a.shape != b_.shape or not bool(torch.isfinite(a).all()):
+            raise RuntimeError(f"K4 {name} malformed at B·h={n} h={h} d={d}")
+        err = (a - b_).abs().max().item()
+        limit = 1e-5 * max(1.0, b_.abs().max().item())
+        errs[name] = {"max_abs_err": err, "max_abs_ref": b_.abs().max().item(),
+                      "limit": limit}
+        oks.append(err <= limit)
+    others = torch.ones(n, dtype=torch.bool, device="cuda")
+    others[zero_seq] = False
+    a, b_ = got[3][others], want[3][others]
+    err = (a - b_).abs().max().item()
+    limit = 1e-5 * max(1.0, b_.abs().max().item())
+    errs["dc_without_zero_row"] = {"max_abs_err": err,
+                                   "max_abs_ref": b_.abs().max().item(),
+                                   "limit": limit}
+    oks.append(err <= limit)
+    row = {
+        "phase": "k4_check", "S": s, "B*h": n, "h": h, "d": d, "dtype": "float32",
+        "keep_masks": keep_masks, "errors": errs,
+        "max_abs_err": max(errs[x]["max_abs_err"]
+                           for x in ("dq", "dk", "dv", "dc_without_zero_row")),
+        "tolerance": "each gradient max abs err <= 1e-5 * max(1, max|ref|)",
+        "ok": all(oks),
+        "ms": graph_ms(lambda: dual_attention_bm_backward(*args)),
+        "plain_ms": graph_ms(lambda: dual_attention_bm_backward_reference(*args)),
+    }
+    row.update(k2_bound_ms(s, n, d, 4, 1 if keep_masks else 0))
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"K4 disagrees with its plain version: {row}")
+    return row
+
+
+def capture_attention_inputs(task) -> dict:
+    """q, k, v, c [S, N, d] and the additive mask [N, S] of the encoder's
+    first layer on the first validation chunk (256 targets + 512 pair
+    lanes = 768) of the task's data, from the task's current weights."""
+    import torch
+
+    from pmgt_tpu_torch.sampling.pairs import make_pretrain_batch_cached
+
+    attn = task.model.bert.layers[0].self_attention
+    captured = {}
+
+    def keep_inputs(module, inputs, output):
+        captured.setdefault("inp", inputs)  # returns None: output unchanged
+
+    hook = attn.register_forward_hook(keep_inputs)
+    try:
+        ctx_ids, ctx_mask, pairs = task._get_ctx(("valid",))
+        targets = torch.as_tensor(task.valid_nodes[: task.args.test_batch_size],
+                                  device="cuda")
+        batch = make_pretrain_batch_cached(ctx_ids, ctx_mask, targets, pairs)
+        with torch.no_grad():
+            task.model(task.feat_tables, batch, deterministic=True,
+                       compute_nfr=False, proj_tables=task._proj_tables())
+    finally:
+        hook.remove()
+    hidden_sm, additive_bs = captured["inp"][:2]
+    s, n, hid = hidden_sm.shape
+    d = task.config.head_dim
+    flat = hidden_sm.reshape(s * n, hid)
+    with torch.no_grad():
+        q, k, v, c = (lin(flat).reshape(s, n, d) for lin in (
+            attn.query, attn.key, attn.value, attn.ctx_attention))
+    return {"q": q, "k": k, "v": v, "c": c, "mask": additive_bs, "beta": task.config.beta}
+
+
+def check_cross_layout(inp: dict) -> dict:
+    """K1 on the captured tensors seq-major against K3 on the same tensors
+    permuted to [B, h, S, d] (h = 1); K2 against K4 likewise, with and
+    without keep masks. Each output within 1e-6 * max(1, max|out|)."""
+    import torch
+
+    from pmgt_tpu_torch.ops.dual_attention import (
+        dual_attention_bm_backward,
+        dual_attention_bm_forward,
+        dual_attention_pallas,
+        dual_attention_sm_backward,
+        dual_attention_sm_forward,
+    )
+
+    q, k, v, c, mask, beta = (inp[x] for x in ("q", "k", "v", "c", "mask", "beta"))
+    s, n, d = q.shape
+    bm = lambda x: x.permute(1, 0, 2).contiguous()  # noqa: E731  [S,N,·]→[N,S,·]
+    g = torch.Generator(device="cuda").manual_seed(17)
+    go = torch.randn(s, n, d, generator=g, device="cuda")
+    m1 = torch.rand((s, n, s), generator=g, device="cuda") < 0.9
+    m2 = torch.rand((s, n, s), generator=g, device="cuda") < 0.9
+    errs, oks = {}, []
+
+    def agree(name, a, b):
+        err = (a - b).abs().max().item()
+        limit = 1e-6 * max(1.0, b.abs().max().item())
+        errs[name] = {"max_abs_err": err, "limit": limit}
+        oks.append(err <= limit and bool(torch.isfinite(a).all()))
+
+    with torch.no_grad():
+        out_k1 = dual_attention_sm_forward(q, k, v, c, mask, beta=beta)
+        out_k3 = dual_attention_pallas(*(bm(x)[:, None] for x in (q, k, v, c)),
+                                       mask[:, None, None, :], beta, 0.1, True, None)
+        agree("k3_vs_k1", out_k3[:, 0].permute(1, 0, 2), out_k1)
+        out_k1m = dual_attention_sm_forward(q, k, v, c, mask, m1, m2, beta, 0.9, True)
+        out_k3m = dual_attention_bm_forward(*map(bm, (q, k, v, c)), mask, bm(m1),
+                                            bm(m2), beta, 0.9, True)
+        agree("k3_vs_k1_keep_masks", out_k3m.permute(1, 0, 2), out_k1m)
+        for label, keep_masks in (("", False), ("_keep_masks", True)):
+            masks = (m1, m2) if keep_masks else (None, None)
+            got_sm = dual_attention_sm_backward(q, k, v, c, mask, *masks, go, beta,
+                                                0.9, keep_masks)
+            got_bm = dual_attention_bm_backward(
+                *map(bm, (q, k, v, c)), mask,
+                *(bm(m) if keep_masks else None for m in (m1, m2)),
+                bm(go), beta, 0.9, keep_masks)
+            for name, a, b in zip(("dq", "dk", "dv", "dc"), got_bm, got_sm):
+                agree(f"k4_vs_k2_{name}{label}", a.permute(1, 0, 2), b)
+    torch.cuda.synchronize()
+    row = {"phase": "cross_layout", "S": s, "N": n, "d": d,
+           "source": "encoder layer 0 q/k/v/c on the first 768-lane validation chunk",
+           "errors": errs, "tolerance": "max abs err <= 1e-6 * max(1, max|out|)",
+           "ok": all(oks)}
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"the two layouts disagree: {row}")
+    return row
+
+
+def run_public_op(inp: dict, calls: int = 3) -> dict:
+    """The batch-major path: ``dual_attention_pallas`` forward (dropout 0.1
+    from a generator) and its autograd backward on the captured tensors as
+    [B, 1, S, d] leaves, ``calls`` times. Counts zeroed just before, read
+    just after: K3 == K4 == ``calls``, K1 == K2 == 0."""
+    import torch
+
+    from pmgt_tpu_torch.ops import dual_attention_pallas
+
+    q, k, v, c, mask, beta = (inp[x] for x in ("q", "k", "v", "c", "mask", "beta"))
+    s, n, d = q.shape
+    to4 = lambda x: x.permute(1, 0, 2).reshape(n, 1, s, d).contiguous()  # noqa: E731
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    go = torch.randn(n, 1, s, d, generator=gen, device="cuda")
+    mask4 = mask[:, None, None, :]
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    finite = True
+    for _ in range(calls):
+        leaves = [to4(x).requires_grad_(True) for x in (q, k, v, c)]
+        out = dual_attention_pallas(*leaves, mask4, beta, 0.1, False, gen)
+        grads = torch.autograd.grad(out, leaves, go)
+        finite = finite and all(bool(torch.isfinite(x).all()) for x in (out, *grads))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    launches = read_launches()
+    ok = finite and launches == {"k1": 0, "k2": 0, "k3": calls, "k4": calls}
+    row = {"phase": "public_op", "calls": calls, "shape": [n, 1, s, d],
+           "host_ms_per_call": ms, "launches": launches, "finite": finite, "ok": ok}
+    emit(row)
+    if not ok:
+        raise RuntimeError(f"the batch-major path did not run through K3/K4: {row}")
+    return row
+
+
+def run_cli(art, data_root: str, card: str) -> dict:
+    """``train-pmgt`` through the port's ``main()`` at full width on the
+    TG-shape data written with ``save_native``: 2 epochs, a resume to a
+    third, ``--mode eval`` and ``--mode inference``. Counts zeroed just
+    before and read just after each invocation; checkpoint saves timed in
+    the run (synchronised host timers), resume and export times beside
+    them."""
+    import shutil
+
+    import torch
+
+    from pmgt_tpu_torch.cli.main import main as cli_main
+    from pmgt_tpu_torch.core.config import TrainArgs
+    from pmgt_tpu_torch.data.artifacts import save_native
+    from pmgt_tpu_torch.tasks import pmgt_task
+    from pmgt_tpu_torch.train import checkpoints, engine
+    from pmgt_tpu_torch.train.registry import RunRegistry
+
+    shutil.rmtree(data_root, ignore_errors=True)
+    data_dir, log_dir = os.path.join(data_root, "data"), os.path.join(data_root, "logs")
+    t0 = time.perf_counter()
+    save_native(os.path.join(data_dir, "TG"), art)
+    save_s = time.perf_counter() - t0
+
+    saves = []
+    real_save = engine.save_checkpoint
+
+    def timed_save(path, payload):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        real_save(path, payload)
+        paths = [path] if isinstance(path, str) else path
+        saves.append({"checkpoint": "+".join(os.path.basename(p) for p in paths),
+                      "ms": (time.perf_counter() - t) * 1e3})
+
+    engine.save_checkpoint = timed_save
+    base = ["--device", "cuda", "train-pmgt", "--model-name", "pmgt",
+            "--dataset-name", "TG", "--data-dir", data_dir, "--log-dir", log_dir,
+            "--early-criterion", "auc", "--seed", "0"]
+    invocations = {}
+
+    def invoke(label, *extra):
+        torch.cuda.synchronize()
+        zero_launches()
+        t = time.perf_counter()
+        out = cli_main([*base, *extra])
+        torch.cuda.synchronize()
+        invocations[label] = {"wall_s": time.perf_counter() - t,
+                              "launches": read_launches()}
+        return out
+
+    try:
+        test1 = invoke("train_2_epochs", "--num-epochs", "2")
+        reg = RunRegistry(log_dir)
+        (run,) = reg.list_runs()
+        status1 = run.status
+        rows1 = run.metrics()
+        test2 = invoke("resume_to_3", "--num-epochs", "3", "--run-id", run.run_id)
+        status2 = run.status
+        test_eval = invoke("eval", "--mode", "eval", "--run-id", run.run_id)
+        status3 = run.status
+        emb_path = os.path.join(data_root, "emb.npy")
+        invoke("inference", "--mode", "inference", "--run-id", run.run_id,
+               "--inference-result-path", emb_path)
+        status4 = run.status
+    finally:
+        engine.save_checkpoint = real_save
+    rows = run.metrics()
+    epochs = {}
+    for m in rows:
+        epochs.setdefault(m["epoch"], {})[m["name"]] = (m["value"], m["step"])
+    best = checkpoints.read_best_info(run.ckpt_dir)
+
+    # Restore `best` in this process and evaluate the validation split.
+    args = TrainArgs(seed=0, run_id=run.run_id, data_dir=data_dir, log_dir=log_dir,
+                     dataset_name="TG", model_name="pmgt", early_criterion="auc")
+    ctx = {"device": "cuda"}
+    pmgt_task.init_dataloader(args, ctx)
+    pmgt_task.init_model(args, ctx)
+    task = ctx["task"]
+    best_path = reg.get_ckpt_path(run.run_id, load_best=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pmgt_task._restore_params_only(best_path, task)
+    torch.cuda.synchronize()
+    restore_best_ms = (time.perf_counter() - t) * 1e3
+    best_auc = task.evaluate("valid")["val/auc"]
+
+    # Resume cost: `last` from disk into the model and optimizer.
+    last_path = os.path.join(run.ckpt_dir, "last")
+    resume_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        task.load_state_dict(checkpoints.restore_checkpoint(last_path)["state"])
+        torch.cuda.synchronize()
+        resume_ms.append((time.perf_counter() - t) * 1e3)
+    export_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        task.export_embeddings()
+        torch.cuda.synchronize()
+        export_ms.append((time.perf_counter() - t) * 1e3)
+    emb = np.load(emb_path)
+
+    steps = len(ctx["train_nodes"]) // 256
+    chunks = math.ceil(len(ctx["valid_nodes"]) / 256)
+    export_chunks = math.ceil(art.num_nodes / 256)
+    layers = task.config.num_hidden_layers
+    # K2: 5 per step; K1: as many plus 5 per evaluation chunk (each epoch's
+    # validation and the closing test evaluation).
+    want = {
+        "train_2_epochs": {"k1": layers * (2 * steps + 3 * chunks), "k2": layers * 2 * steps},
+        "resume_to_3": {"k1": layers * (steps + 2 * chunks), "k2": layers * steps},
+        "eval": {"k1": layers * chunks, "k2": 0},
+        "inference": {"k1": layers * export_chunks, "k2": 0},
+    }
+    launches_ok = all(
+        invocations[k]["launches"] == {**w, "k3": 0, "k4": 0} for k, w in want.items()
+    )
+    auc_rows = [(e, v["val/auc"]) for e, v in sorted(epochs.items()) if "val/auc" in v]
+    checks = {
+        "finished_after_2_epochs": status1 == "FINISHED",
+        "two_epoch_rows_with_val_auc": [e for e, _ in auc_rows[:2]] == [0, 1]
+        and len([m for m in rows1 if m["name"] == "val/auc"]) == 2,
+        "best_json": best is not None and best["monitor"] == "val/auc",
+        "best_and_last": all(os.path.isdir(os.path.join(run.ckpt_dir, x))
+                             for x in ("best", "last")),
+        "resumed_one_epoch_to_step_99": [e for e, _ in auc_rows] == [0, 1, 2]
+        and auc_rows[-1][1][1] == 3 * steps == 99 and status2 == "FINISHED",
+        "eval_finite_and_status_untouched": all(np.isfinite(list(test_eval.values())))
+        and status3 == status2,
+        "inference_status_untouched": status4 == status2,
+        "restored_best_reproduces_val_auc": abs(best_auc - best["value"]) <= 1e-6,
+        "export": list(emb.shape) == [art.num_nodes, 128] and emb.dtype == np.float32
+        and bool(np.isfinite(emb).all()),
+        "launches": launches_ok,
+    }
+    row = {
+        "phase": "cli",
+        "card": card,
+        "run_id": run.run_id,
+        "dataset_write_s": save_s,
+        "invocations": invocations,
+        "expected_launches": want,
+        "epoch_time_s": {e: v["epoch_time"][0] for e, v in epochs.items()
+                         if "epoch_time" in v},
+        "val_auc": {e: v[0] for e, v in auc_rows},
+        "best": best,
+        "restored_best_val_auc": best_auc,
+        "test_after_train": test1,
+        "test_after_resume": test2,
+        "test_eval_mode": test_eval,
+        "statuses": [status1, status2, status3, status4],
+        "checkpoint_saves": saves,
+        "checkpoint_bytes": os.path.getsize(os.path.join(last_path, checkpoints.CKPT_FILE)),
+        "restore_best_params_ms": restore_best_ms,
+        "resume_ms": resume_ms,
+        "export_ms": export_ms,
+        "export_shape": list(emb.shape),
+        "checks": checks,
+        "ok": all(checks.values()),
+    }
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"train-pmgt end to end failed: {checks}")
+    return row
+
+
 def run_slice(task, label: str) -> dict:
     """Evaluate and export through ``task``; returns metrics, embeddings,
     times and the K1 launches of the run."""
@@ -350,7 +835,7 @@ def run_slice(task, label: str) -> dict:
     task.export_embeddings()
     torch.cuda.synchronize()
 
-    dual_attention_sm.launches = dual_attention_sm_backward.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     metrics = task.evaluate("valid")
     torch.cuda.synchronize()
@@ -405,7 +890,7 @@ def run_training(task) -> dict:
     torch.cuda.synchronize()
     ctx_ms = (time.perf_counter() - t0) * 1e3
 
-    dual_attention_sm.launches = dual_attention_sm_backward.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     losses = task.train_epoch(0)
     torch.cuda.synchronize()
@@ -485,7 +970,7 @@ def compare_training_routes(make_task) -> dict:
     plain._train_ctx, plain._train_ctx_tag = kern._train_ctx, kern._train_ctx_tag
     launches, losses, grads, busy = {}, {}, {}, {}
     for name, task in (("kernel", kern), ("plain", plain)):
-        dual_attention_sm.launches = dual_attention_sm_backward.launches = 0
+        zero_launches()
         batches = list(task.train_batches(0))[:4]
         out = []
         for i, (targets, gen) in enumerate(batches[:3]):
@@ -578,6 +1063,20 @@ def main() -> int:
     k2_checks = [check_k2(6, n, 128, km) for n in (3072, 37) for km in (False, True)]
     results["k2_checks"] = k2_checks
 
+    # ---- 8. K3 and K4, the batch-major kernels, against their plain versions
+    k3_checks = [
+        check_k3(n, 1, 128, dt, km)
+        for n in (3072, 768)
+        for dt in (torch.float32, torch.bfloat16)
+        for km in (False, True)
+    ]
+    k3_checks += [check_k3(b, h, d, torch.float32, km)
+                  for b, h, d in ((37, 1, 128), (384, 2, 64)) for km in (False, True)]
+    k4_checks = [check_k4(b, h, d, km)
+                 for b, h, d in ((3072, 1, 128), (768, 1, 128), (37, 1, 128), (384, 2, 64))
+                 for km in (False, True)]
+    results.update(k3_checks=k3_checks, k4_checks=k4_checks)
+
     # ---- 3. main path: evaluate + export at full width ------------------
     from pmgt_tpu_torch.core.config import TrainArgs
     from pmgt_tpu_torch.data.synthetic import make_published_shape_dataset
@@ -650,18 +1149,38 @@ def main() -> int:
 
     routes = compare_training_routes(make_task)
 
+    # ---- 9. the two layouts on real tensors, and the batch-major path ----
+    attn_inputs = capture_attention_inputs(task)
+    cross = check_cross_layout(attn_inputs)
+    public = run_public_op(attn_inputs)
+
+    # ---- 10. train-pmgt end to end through the CLI ----------------------
+    cli = run_cli(art, os.path.join(HERE, "outputs", "chip_smoke_cli"), smi)
+
     # ---- summary ---------------------------------------------------------
-    # Both kernels at the training lanes with keep masks (dropout is on in
-    # training); launches over the counted serving and training runs.
-    k1_row = next(r for r in checks if r["N"] == 3072 and r["keep_masks"])
-    k2_row = next(r for r in k2_checks if r["N"] == 3072 and r["keep_masks"])
+    # Each kernel at its main path's shape (K1/K2 the training lanes, K3/K4
+    # the public op at 3,072 lanes) with keep masks (dropout on); launches
+    # over every counted run, by path.
+    def pick(rows, n):
+        return next(r for r in rows if r.get("N", r.get("B*h")) == n and r["keep_masks"]
+                    and r["dtype"] == "float32" and r.get("h", 1) == 1)
+
+    cli_launches = {k: sum(v["launches"][k] for v in cli["invocations"].values())
+                    for k in ("k1", "k2")}
     kernels = []
     for name, source, replaces, row, rows, launches in (
-        ("dual_attention_fwd_sm", K1_SOURCE, K1_REPLACES, k1_row,
+        ("dual_attention_fwd_sm", K1_SOURCE, K1_REPLACES, pick(checks, 3072),
          [r for r in checks if r["dtype"] == "float32"],
-         {"serving": n_launches, "training": train["k1_launches"]}),
-        ("dual_attention_bwd_sm", K2_SOURCE, K2_REPLACES, k2_row, k2_checks,
-         {"serving": kern["row"]["k2_launches"], "training": train["k2_launches"]}),
+         {"serving": n_launches, "training": train["k1_launches"],
+          "train_pmgt_cli": cli_launches["k1"]}),
+        ("dual_attention_bwd_sm", K2_SOURCE, K2_REPLACES, pick(k2_checks, 3072), k2_checks,
+         {"serving": kern["row"]["k2_launches"], "training": train["k2_launches"],
+          "train_pmgt_cli": cli_launches["k2"]}),
+        ("dual_attention_fwd_bm", K1_SOURCE, K3_REPLACES, pick(k3_checks, 3072),
+         [r for r in k3_checks if r["dtype"] == "float32"],
+         {"public_op": public["launches"]["k3"]}),
+        ("dual_attention_bwd_bm", K2_SOURCE, K4_REPLACES, pick(k4_checks, 3072), k4_checks,
+         {"public_op": public["launches"]["k4"]}),
     ):
         kernels.append({
             "name": name,
@@ -677,8 +1196,11 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": None,  # no single PyTorch call computes it
         })
+    if any(k["launches"] == 0 for k in kernels):
+        raise RuntimeError(f"a kernel was not launched on its path: {kernels}")
     results.update(kernels=kernels, slice_kernel=kern["row"],
-                   slice_plain=ref["row"], train=train, train_routes=routes)
+                   slice_plain=ref["row"], train=train, train_routes=routes,
+                   cross_layout=cross, public_op=public, cli=cli)
     os.makedirs(os.path.join(HERE, "outputs"), exist_ok=True)
     with open(os.path.join(HERE, "outputs", "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1)

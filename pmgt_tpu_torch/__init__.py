@@ -3,17 +3,19 @@
 
 A second package beside the JAX reference ``pmgt_tpu``; it mirrors that
 package's layout (``core``, ``graph``, ``data``, ``sampling``, ``ops``,
-``models``, ``metrics``, ``tasks``) so each counterpart is easy to find,
-but imports only ``torch`` and ``numpy`` — never JAX and never a module of
-``pmgt_tpu``.
+``models``, ``metrics``, ``tasks``, ``train``, ``cli``) so each
+counterpart is easy to find, but imports only ``torch`` and ``numpy`` —
+never JAX and never a module of ``pmgt_tpu``.
 
-It covers the serving path, validation pair-AUC (``PMGTTask.evaluate``)
-and per-node CLS embedding export (``PMGTTask.export_embeddings``), and
-the pre-training steps (``PMGTTask.train_epoch``: GSR + NFR, dropout,
-AdamW). The seq-major dual attention runs as two hand-written CUDA
-kernels, the forward (``ops/csrc/dual_attention_fwd.cu``) and the
-backward (``ops/csrc/dual_attention_bwd.cu``), built with ``nvcc`` at
-first use.
+It covers PMGT pre-training end to end: the ``train-pmgt`` command
+(``cli/main.py``: train, evaluate, export; early stopping, best/last
+checkpoints, resume) over ``PMGTTask`` (training steps with GSR + NFR,
+dropout and AdamW; validation pair-AUC; per-node CLS embedding export),
+and the public batch-major op ``ops.dual_attention_pallas``. The dual
+attention runs as two hand-written CUDA kernels, the forward
+(``ops/csrc/dual_attention_fwd.cu``) and the backward
+(``ops/csrc/dual_attention_bwd.cu``), each in the seq-major and the
+batch-major layout, built with ``nvcc`` at first use.
 
 Entry points run on ``device="cuda"`` by default and raise when no GPU is
 present; pass ``device="cpu"`` to run the plain PyTorch versions.

@@ -1,0 +1,336 @@
+"""Command line of the port (counterpart of ``pmgt_tpu/cli/main.py``),
+built on ``argparse``:
+
+    python -m pmgt_tpu_torch.cli.main [--device cuda|cpu] [--save-args F] \\
+        {train-pmgt,runs,make-synthetic} ...
+
+(or the ``pmgt-tpu-torch`` console script). ``train-pmgt`` takes every
+option of the JAX package's command, with the same names and defaults,
+and ``--save-args`` writes the same JSON. Options whose feature is not
+ported yet are accepted and raise ``NotImplementedError`` when a run
+starts (``tasks/pmgt_task.UNPORTED_OPTIONS``, and here the multi-host
+trio); ``--scan-epoch`` has no counterpart (the engine runs one epoch at a
+time) and is only recorded. ``--device`` belongs to the command group and
+stays out of the saved arguments. ``train_model`` is the workload
+dispatcher: it finalizes the status (FINISHED or FAILED) only of a run
+this invocation created or trained; ``--mode eval`` or ``inference``
+against an existing run leaves that run's status as it was.
+"""
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import logging
+import os
+import sys
+import time
+from typing import Any, Dict, Optional, Sequence
+
+from pmgt_tpu_torch.core.config import TrainArgs
+from pmgt_tpu_torch.train.checkpoints import read_best_info
+from pmgt_tpu_torch.train.registry import RunRegistry
+
+logger = logging.getLogger("pmgt_tpu_torch")
+
+SCHEDULER_TYPES = ("linear", "cosine", "cosine_with_restarts", "polynomial",
+                   "constant", "constant_with_warmup")
+# The multi-host bring-up options: not TrainArgs fields (as in the JAX
+# package, which consumes them before the run), not ported.
+MULTI_HOST = ("coordinator_address", "num_processes", "process_id")
+
+_COMMON_KEYS = {
+    "seed", "run_id", "model_name", "dataset_name", "valid_size",
+    "num_epochs", "optim", "lr", "decay", "mp_enabled", "early",
+    "early_criterion", "train_batch_size", "test_batch_size",
+    "gradient_max_norm", "accumulation_step", "scheduler_warmup",
+    "scheduler_type", "mode", "inference_result_path", "experiment_name",
+    "run_name", "tags", "data_dir", "log_dir", "run_script", "num_devices",
+    "profile_dir", "eval_interval", "ckpt_interval",
+}
+
+
+def log_elapsed_time(func):
+    @functools.wraps(func)
+    def wrapper(*args, **kwargs):
+        start = time.time()
+        result = func(*args, **kwargs)
+        logger.info("elapsed time of %s: %.1fs", func.__name__, time.time() - start)
+        return result
+
+    return wrapper
+
+
+def _unit_float(text: str) -> float:
+    value = float(text)
+    if not 0.0 <= value <= 1.0:
+        raise argparse.ArgumentTypeError(f"{value} is not in [0, 1]")
+    return value
+
+
+def _existing_path(text: str) -> str:
+    if not os.path.exists(text):
+        raise argparse.ArgumentTypeError(f"path {text!r} does not exist")
+    return text
+
+
+def _add_common_options(p: argparse.ArgumentParser) -> None:
+    """The JAX package's common training options, same names and
+    defaults."""
+    a = p.add_argument
+    a("--seed", type=int, default=0, help="seed for reproducibility")
+    a("--run-id", default=None, help="run id to resume, evaluate or export")
+    a("--model-name", required=True)
+    a("--dataset-name", required=True)
+    a("--valid-size", type=float, default=0.2, help="validation dataset size")
+    a("--num-epochs", type=int, default=20)
+    a("--optim", choices=("adamw", "sgd"), default="adamw")
+    a("--lr", type=float, default=1e-3)
+    a("--decay", type=float, default=1e-2, help="weight decay")
+    a("--mp-enabled", action="store_true", help="bf16 compute (not ported)")
+    a("--early", type=int, default=5, help="early stopping patience")
+    a("--early-criterion", default="loss")
+    a("--num-workers", type=int, default=0, help="unused (kept for config compatibility)")
+    a("--train-batch-size", type=int, default=256)
+    a("--test-batch-size", type=int, default=256)
+    a("--gradient-max-norm", type=float, default=None)
+    a("--accumulation-step", type=int, default=1)
+    a("--scheduler-warmup", type=_unit_float, default=None)
+    a("--scheduler-type", choices=SCHEDULER_TYPES, default=None)
+    a("--mode", choices=("train", "eval", "inference"), default="train")
+    a("--inference-result-path", default=None)
+    a("--experiment-name", default="baseline")
+    a("--run-name", default=None)
+    a("--tags", nargs=2, action="append", default=None, metavar=("KEY", "VALUE"))
+    a("--data-dir", default="./data")
+    a("--log-dir", default="./logs")
+    a("--run-script", type=_existing_path, default=None)
+    a("--num-devices", type=int, default=None, help="devices (more than 1: not ported)")
+    a("--coordinator-address", default=None, help="multi-host (not ported)")
+    a("--num-processes", type=int, default=None, help="multi-host (not ported)")
+    a("--process-id", type=int, default=None, help="multi-host (not ported)")
+    a("--profile-dir", default=None, help="profiler trace directory (not ported)")
+    a("--swa-start", type=int, default=None,
+      help="enable Stochastic Weight Averaging from this epoch")
+    a("--eval-init", action="store_true",
+      help="evaluate the initial parameters as a best-checkpoint candidate "
+      "before any training")
+    a("--eval-interval", type=int, default=1,
+      help="evaluate/checkpoint/early-stop every k epochs (patience counts "
+      "evaluation points)")
+    a("--ckpt-interval", type=int, default=1,
+      help="save the resumable 'last' checkpoint every k evaluation points "
+      "(always on stop/preemption; 'best' is unaffected)")
+
+
+def _add_train_pmgt(sub) -> None:
+    p = sub.add_parser("train-pmgt", help="pre-train PMGT",
+                       formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    _add_common_options(p)
+    a = p.add_argument
+    a("--max-ctx-neigh", type=int, default=5)
+    a("--hop-sampling-sizes", type=int, action="append", default=None,
+      help="repeat per hop (default 16 8 4)")
+    a("--max-total-samples", type=int, default=10)
+    a("--min-neg-samples", type=int, default=5)
+    a("--hidden-size", type=int, default=128)
+    a("--intermediate-size", type=int, default=128)
+    a("--num-hidden-layers", type=int, default=5)
+    a("--num-attention-heads", type=int, default=1)
+    a("--beta", type=float, default=0.5)
+    a("--random-node-ratio", type=float, default=0.2 * 0.1)
+    a("--mask-node-ratio", type=float, default=0.2 * 0.8)
+    a("--attention-impl", choices=("xla", "pallas"), default=None,
+      help="dual attention: 'pallas' the hand-written kernels (default), "
+      "'xla' the plain PyTorch formulation")
+    a("--position-embedding-type", default="absolute",
+      choices=("absolute", "relative_key", "relative_key_query"))
+    a("--gradient-checkpointing", action="store_true", help="(not ported)")
+    a("--ctx-cache", action=argparse.BooleanOptionalAction, default=True,
+      help="per-epoch context cache (off = per-step sampling, not ported)")
+    a("--scan-epoch", action=argparse.BooleanOptionalAction, default=True,
+      help="no counterpart: the engine runs one epoch at a time and "
+      "fetches its losses once (recorded for config compatibility)")
+    a("--shard-feat-tables", action="store_true", help="(not ported)")
+    a("--shard-graph-tables", action="store_true", help="(not ported)")
+    a("--fusion-strategy", choices=("auto", "project_tables", "gather_rows"),
+      default="auto")
+    a("--feat-tables-dtype", choices=("float32", "bfloat16", "int8"),
+      default=None, help="feature table storage (only float32 is ported)")
+    p.set_defaults(handler=_train_pmgt)
+
+
+def _add_runs(sub) -> None:
+    p = sub.add_parser("runs", help="browse the run registry")
+    p.add_argument("--log-dir", default="./logs")
+    p.add_argument("--experiment-name", default=None, help="restrict to one experiment")
+    p.add_argument("--run-id", default=None,
+                   help="show one run in detail (params, tags, latest metrics)")
+    p.set_defaults(handler=_runs)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    from pmgt_tpu_torch.cli import data_cmds
+
+    parser = argparse.ArgumentParser(
+        prog="pmgt-tpu-torch",
+        description="PMGT on PyTorch/CUDA: pre-training, evaluation, "
+        "embedding export and the run registry",
+    )
+    parser.add_argument("--save-args", default=None,
+                        help="save the resolved arguments to a JSON file and exit")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device of the run ('cpu' runs the plain "
+                        "PyTorch versions)")
+    sub = parser.add_subparsers(dest="command", required=True)
+    _add_train_pmgt(sub)
+    _add_runs(sub)
+    data_cmds.add_make_synthetic(sub)
+    return parser
+
+
+def _make_args(raw: Dict[str, Any]) -> TrainArgs:
+    raw.pop("num_workers", None)
+    for name in MULTI_HOST:
+        raw.pop(name, None)
+    if raw.get("hop_sampling_sizes") is None:
+        raw["hop_sampling_sizes"] = (16, 8, 4)
+    else:
+        raw["hop_sampling_sizes"] = tuple(raw["hop_sampling_sizes"])
+    base = {k: v for k, v in raw.items() if k in _COMMON_KEYS}
+    extra = {k: v for k, v in raw.items() if k not in _COMMON_KEYS}
+    base["tags"] = tuple(tuple(t) for t in base.get("tags") or ())
+    return TrainArgs(**base, extra=extra)
+
+
+def _train_pmgt(ns: argparse.Namespace):
+    raw = {k: v for k, v in vars(ns).items()
+           if k not in ("save_args", "device", "command", "handler")}
+    multi_host = {k: raw[k] for k in MULTI_HOST if raw.get(k) is not None}
+    args = _make_args(raw)
+    if ns.save_args:
+        args.save(ns.save_args)
+        logger.info("saved args to %s", ns.save_args)
+        return None
+    if multi_host:
+        raise NotImplementedError(
+            f"multi-host options {sorted(multi_host)} are not ported to "
+            "pmgt_tpu_torch yet (ROADMAP.md §1 item 6, multi-GPU)"
+        )
+    return train_model("pmgt", args, device=ns.device)
+
+
+@log_elapsed_time
+def train_model(train_name: str, args: TrainArgs, device: str = "cuda"):
+    """The workload contract's dispatch: check, seed, data, model, run,
+    then train / evaluate / export by ``args.mode``. (The JAX package's
+    hp-tuning knobs, ``is_hptuning`` and trial pruning, come with the
+    hp-tuning command, which is not ported.)"""
+    if train_name != "pmgt":
+        raise NotImplementedError(
+            f"{train_name} is not ported to pmgt_tpu_torch yet (ROADMAP.md "
+            "§1 item 5, downstream models)"
+        )
+    from pmgt_tpu_torch.tasks import pmgt_task as trainer
+
+    ctx: Dict[str, Any] = {"device": device}
+    trainer.check_args(args)
+    trainer.init_run(args)
+    trainer.init_dataloader(args, ctx)
+    trainer.init_model(args, ctx)
+
+    registry = RunRegistry(args.log_dir)
+    if args.run_id is not None:
+        run = registry.get_run(args.run_id)
+    else:
+        run = registry.create_run(
+            args.experiment_name,
+            args.to_dict(),
+            run_name=args.run_name,
+            tags=dict(args.tags),
+            run_script=args.run_script,
+        )
+        logger.info("run_id: %s", run.run_id)
+    # This invocation finalizes the status only of a run it created or
+    # trained: eval or inference against an existing --run-id must leave
+    # that run's FINISHED/INTERRUPTED record as it was.
+    owns_status = args.run_id is None or args.mode == "train"
+
+    try:
+        if args.mode == "inference":
+            logger.info("Inference mode")
+            out = trainer.inference(args, ctx, registry, run)
+        else:
+            if args.mode == "train":
+                trainer.train(args, ctx, registry, run)
+            else:
+                logger.info("Eval mode")
+            out = trainer.test(args, ctx, registry, run)
+            logger.info("test results: %s", out)
+    except Exception:
+        if owns_status:
+            registry.set_status(run, "FAILED")
+        raise
+    # A preempted fit marks the run INTERRUPTED; keep it so resume logic
+    # keyed on it is not misled.
+    if owns_status and run.status != "INTERRUPTED":
+        registry.set_status(run, "FINISHED")
+    return out
+
+
+def _runs(ns: argparse.Namespace) -> None:
+    registry = RunRegistry(ns.log_dir)
+    if ns.run_id:
+        run = registry.get_run(ns.run_id)
+        print(f"run {run.run_id}  experiment={run.experiment_name}  status={run.status}")
+        tags_path = os.path.join(run.run_dir, "tags.json")
+        if os.path.exists(tags_path):
+            with open(tags_path, encoding="utf-8") as f:
+                tags = json.load(f)
+            print("tags: " + "  ".join(f"{k}={v}" for k, v in tags.items()))
+        print("params:")
+        for k, v in sorted(run.params.items()):
+            print(f"  {k} = {v}")
+        latest = {m["name"]: m for m in run.metrics()}
+        if latest:
+            print("latest metrics:")
+            for name in sorted(latest):
+                m = latest[name]
+                print(f"  {name} = {m['value']:.6g}  (epoch {m['epoch']}, step {m['step']})")
+        best = read_best_info(run.ckpt_dir)
+        if best:
+            print(f"best: {best.get('monitor')} = {best.get('value'):.6g}"
+                  f" at epoch {best.get('epoch')}")
+        return
+    print(f"{'RUN_ID':34} {'EXPERIMENT':16} {'STATUS':12} {'MODEL':12} {'DATASET':10} BEST")
+    for run in registry.list_runs(ns.experiment_name):
+        params = run.params
+        best = read_best_info(run.ckpt_dir)
+        best_str = (f"{best.get('monitor')}={best.get('value'):.5g}@{best.get('epoch')}"
+                    if best else "-")
+        print(f"{run.run_id:34} {run.experiment_name:16} {run.status:12} "
+              f"{str(params.get('model_name', '-')):12} "
+              f"{str(params.get('dataset_name', '-')):10} {best_str}")
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    """Parse ``argv`` (default: ``sys.argv[1:]``) and run the command.
+    Returns what the command returns: ``train-pmgt``'s test metrics or
+    exported embeddings, None for the others."""
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
+        stream=sys.stderr,
+    )
+    ns = build_parser().parse_args(argv)
+    return ns.handler(ns)
+
+
+def entry() -> int:
+    """The console script: exit status 0 when the command returns."""
+    main()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(entry())

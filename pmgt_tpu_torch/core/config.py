@@ -6,12 +6,14 @@ value names: ``"pallas"`` selects the hand-written dual-attention kernel
 route (``ops.dual_attention.dual_attention_sm``), ``"xla"`` the plain
 batch-major PyTorch formulation (``models.pmgt.dual_attention_plain``).
 
-``TrainArgs`` carries the fields the serving and training slices read;
-the engine's flags (checkpoints, run registry, CLI) arrive with it.
+``TrainArgs`` has the JAX package's fields, defaults and JSON form
+(``to_dict`` / ``from_dict`` / ``save`` / ``load``), so a ``--save-args``
+file written by either package loads in the other.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
@@ -143,11 +145,16 @@ class SamplingConfig:
 
 @dataclass
 class TrainArgs:
-    """The run arguments the serving and training slices read, with the
-    JAX package's defaults. ``extra`` holds the workload-specific flags
-    (hidden_size, hop_sampling_sizes, ...), readable as attributes."""
+    """Common training arguments, field for field the JAX package's (its
+    device-mesh fields kept so saved arguments round-trip). ``extra`` holds
+    the workload-specific flags (hidden_size, hop_sampling_sizes, ...),
+    readable as attributes."""
 
+    # --- train options -------------------------------------------------
     seed: int = 0
+    run_id: Optional[str] = None
+    model_name: str = ""
+    dataset_name: str = ""
     valid_size: float = 0.2
     num_epochs: int = 20
     optim: str = "adamw"  # {"adamw", "sgd"}
@@ -162,7 +169,28 @@ class TrainArgs:
     accumulation_step: int = 1
     scheduler_warmup: Optional[float] = None
     scheduler_type: Optional[str] = None
+    mode: str = "train"  # {"train", "eval", "inference"}
+    inference_result_path: Optional[str] = None
+
+    # --- log options ---------------------------------------------------
+    experiment_name: str = "baseline"
+    run_name: Optional[str] = None
+    tags: Tuple[Tuple[str, str], ...] = ()
+    data_dir: str = "./data"
+    log_dir: str = "./logs"
+    run_script: Optional[str] = None
+
+    # --- device options ------------------------------------------------
+    num_devices: Optional[int] = None  # None = one device (more: not ported)
+    mesh_shape: Optional[Tuple[int, ...]] = None
+    profile_dir: Optional[str] = None
+    # Evaluate/checkpoint/early-stop every k epochs.
     eval_interval: int = 1
+    # Save the resumable `last` checkpoint every k evaluation points
+    # (always on stop/preemption; `best` is unaffected).
+    ckpt_interval: int = 1
+
+    # --- workload-specific extras (populated by each CLI command) -------
     extra: Dict[str, Any] = field(default_factory=dict)
 
     def __getattr__(self, name: str) -> Any:
@@ -170,3 +198,29 @@ class TrainArgs:
         if extra is not None and name in extra:
             return extra[name]
         raise AttributeError(name)
+
+    def to_dict(self) -> Dict[str, Any]:
+        d = {k: v for k, v in self.__dict__.items() if k != "extra"}
+        d.update(self.extra)
+        d["tags"] = [list(t) for t in self.tags]
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "TrainArgs":
+        known = {f.name for f in dataclasses.fields(cls) if f.name != "extra"}
+        base = {k: v for k, v in d.items() if k in known}
+        extra = {k: v for k, v in d.items() if k not in known}
+        if "tags" in base:
+            base["tags"] = tuple(tuple(t) for t in base["tags"])
+        if base.get("mesh_shape") is not None:
+            base["mesh_shape"] = tuple(base["mesh_shape"])
+        return cls(**base, extra=extra)
+
+    def save(self, path: str) -> None:
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(self.to_dict(), f, indent=2, default=str)
+
+    @classmethod
+    def load(cls, path: str) -> "TrainArgs":
+        with open(path, "r", encoding="utf-8") as f:
+            return cls.from_dict(json.load(f))

@@ -1,17 +1,23 @@
-// PMGT dual-attention forward, seq-major layout, for Hopper (sm_90a).
+// PMGT dual-attention forward for Hopper (sm_90a), in either layout.
 //
-// Replaces the TPU kernel `_pallas_forward_sm` (body `_kernel_sm`, math
-// `_fwd_math`) of pmgt_tpu/ops/dual_attention.py. For every sequence n:
+// Replaces the TPU kernels `_pallas_forward_sm` (body `_kernel_sm`, the
+// seq-major K1) and `_pallas_forward` (body `_kernel`, the batch-major K3)
+// of pmgt_tpu/ops/dual_attention.py; both run the math `_fwd_math`. For
+// every sequence n:
 //
 //   cos  = c c^T / max(|c_i| |c_j|, 1e-12)
 //   P1   = softmax(1 - cos + I + M)          (M: additive key mask)
 //   P2   = softmax(q k^T / sqrt(d) + M)
 //   out  = (beta * P1 * m1/keep + (1 - beta) * P2 * m2/keep) v
 //
-// with q, k, v, c, out stored [S, N, d] (position outermost: row (i, n)
-// starts at (i * N + n) * d), the additive mask [N, S] f32 and the
-// optional keep masks m1, m2 [S, N, S] (u8 or f32). Math is f32 for f32
-// and bf16 operands; the output has the operands' type.
+// Layout: element (position i, sequence n, feature e) of q, k, v, c and
+// out sits at i * pos_stride + n * seq_stride + e, so the seq-major
+// [S, N, d] layout passes (N * d, d) and the batch-major [N, S, d] layout
+// (d, S * d). The additive key mask is [N, S] f32 in both (the JAX
+// package's batch-major [N, 1, S] has the same bytes); the optional keep
+// masks m1, m2 (u8 or f32) follow the same rule with (mpos_stride,
+// mseq_stride): (N * S, S) seq-major, (S, S * S) batch-major. Math is f32
+// for f32 and bf16 operands; the output has the operands' type.
 //
 // What bounds it on an H100: device-memory bytes. Each call must read
 // q, k, v, c and write out (5 * S * N * d elements) plus the mask
@@ -30,7 +36,7 @@
 // register arrays. No padding of N: the ragged last block masks itself.
 //
 // Limits: 1 <= S <= 32, 32 <= d <= 256 with d % 32 == 0 (checked here and
-// by the Python wrapper). The C entry point returns cudaGetLastError().
+// by the Python wrapper). The C entry points return cudaGetLastError().
 
 #include "dual_attention_common.cuh"
 
@@ -48,32 +54,33 @@ constexpr int kWarpsPerBlock = 4;
 // d / 32 is the lane slice. mask_kind: 0 = no keep masks, 1 = u8, 2 = f32.
 template <typename T, int DPL, int SMAX>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
-    dual_attention_fwd_sm_kernel(const T* __restrict__ q,
-                                 const T* __restrict__ k,
-                                 const T* __restrict__ v,
-                                 const T* __restrict__ c,
-                                 const float* __restrict__ mask,
-                                 const void* __restrict__ m1,
-                                 const void* __restrict__ m2, int mask_kind,
-                                 T* __restrict__ out, int S, int N,
-                                 float beta, float one_minus_beta,
-                                 float inv_keep, float inv_sqrt_d) {
-  constexpr int D = DPL * kWarp;
+    dual_attention_fwd_kernel(const T* __restrict__ q,
+                              const T* __restrict__ k,
+                              const T* __restrict__ v,
+                              const T* __restrict__ c,
+                              const float* __restrict__ mask,
+                              const void* __restrict__ m1,
+                              const void* __restrict__ m2, int mask_kind,
+                              T* __restrict__ out, int S, int N,
+                              long long pos_stride, long long seq_stride,
+                              long long mpos_stride, long long mseq_stride,
+                              float beta, float one_minus_beta,
+                              float inv_keep, float inv_sqrt_d) {
   const int lane = threadIdx.x % kWarp;
   const int n = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
   if (n >= N) return;  // n is warp-uniform: whole warps leave together
 
-  const size_t pos_stride = static_cast<size_t>(N) * D;
-  const size_t base = static_cast<size_t>(n) * D + lane * DPL;
+  const size_t base = static_cast<size_t>(n) * seq_stride + lane * DPL;
+  auto row = [&](const T* p, int i) { return p + i * pos_stride + base; };
 
   float K[SMAX][DPL], V[SMAX][DPL], C[SMAX][DPL];
   float cnorm[SMAX], madd[SMAX];
 #pragma unroll
   for (int j = 0; j < SMAX; ++j) {
     if (j < S) {
-      load_row<DPL>(k + j * pos_stride + base, K[j]);
-      load_row<DPL>(v + j * pos_stride + base, V[j]);
-      load_row<DPL>(c + j * pos_stride + base, C[j]);
+      load_row<DPL>(row(k, j), K[j]);
+      load_row<DPL>(row(v, j), V[j]);
+      load_row<DPL>(row(c, j), C[j]);
       float ss = 0.f;
 #pragma unroll
       for (int e = 0; e < DPL; ++e) ss += C[j][e] * C[j][e];
@@ -84,8 +91,8 @@ __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
 
   for (int i = 0; i < S; ++i) {
     float qi[DPL], ci[DPL];
-    load_row<DPL>(q + i * pos_stride + base, qi);
-    load_row<DPL>(c + i * pos_stride + base, ci);
+    load_row<DPL>(row(q, i), qi);
+    load_row<DPL>(row(c, i), ci);
     float ni = 0.f;
 #pragma unroll
     for (int j = 0; j < SMAX; ++j)
@@ -126,7 +133,8 @@ __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
     float acc[DPL];
 #pragma unroll
     for (int e = 0; e < DPL; ++e) acc[e] = 0.f;
-    const size_t mrow = (static_cast<size_t>(i) * N + n) * S;
+    const size_t mrow = static_cast<size_t>(i) * mpos_stride +
+                       static_cast<size_t>(n) * mseq_stride;
 #pragma unroll
     for (int j = 0; j < SMAX; ++j) {
       if (j < S) {
@@ -147,9 +155,10 @@ __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
 template <typename T, int DPL>
 void launch_dpl(const void* q, const void* k, const void* v, const void* c,
                 const float* mask, const void* m1, const void* m2,
-                int mask_kind, void* out, int S, int N, float beta,
-                float one_minus_beta, float inv_keep, float inv_sqrt_d,
-                cudaStream_t stream) {
+                int mask_kind, void* out, int S, int N, long long pos_stride,
+                long long seq_stride, long long mpos_stride,
+                long long mseq_stride, float beta, float one_minus_beta,
+                float inv_keep, float inv_sqrt_d, cudaStream_t stream) {
   const dim3 block(kWarp * kWarpsPerBlock);
   const dim3 grid((N + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const T* tq = static_cast<const T*>(q);
@@ -158,26 +167,30 @@ void launch_dpl(const void* q, const void* k, const void* v, const void* c,
   const T* tc = static_cast<const T*>(c);
   T* to = static_cast<T*>(out);
   if (S <= 8) {
-    dual_attention_fwd_sm_kernel<T, DPL, 8><<<grid, block, 0, stream>>>(
-        tq, tk, tv, tc, mask, m1, m2, mask_kind, to, S, N, beta,
-        one_minus_beta, inv_keep, inv_sqrt_d);
+    dual_attention_fwd_kernel<T, DPL, 8><<<grid, block, 0, stream>>>(
+        tq, tk, tv, tc, mask, m1, m2, mask_kind, to, S, N, pos_stride,
+        seq_stride, mpos_stride, mseq_stride, beta, one_minus_beta, inv_keep,
+        inv_sqrt_d);
   } else {
-    dual_attention_fwd_sm_kernel<T, DPL, 32><<<grid, block, 0, stream>>>(
-        tq, tk, tv, tc, mask, m1, m2, mask_kind, to, S, N, beta,
-        one_minus_beta, inv_keep, inv_sqrt_d);
+    dual_attention_fwd_kernel<T, DPL, 32><<<grid, block, 0, stream>>>(
+        tq, tk, tv, tc, mask, m1, m2, mask_kind, to, S, N, pos_stride,
+        seq_stride, mpos_stride, mseq_stride, beta, one_minus_beta, inv_keep,
+        inv_sqrt_d);
   }
 }
 
 template <typename T>
 void launch(int dpl, const void* q, const void* k, const void* v,
             const void* c, const float* mask, const void* m1, const void* m2,
-            int mask_kind, void* out, int S, int N, float beta,
-            float one_minus_beta, float inv_keep, float inv_sqrt_d,
-            cudaStream_t stream) {
-#define PMGT_DPL_CASE(X)                                                   \
-  case X:                                                                  \
-    launch_dpl<T, X>(q, k, v, c, mask, m1, m2, mask_kind, out, S, N, beta, \
-                     one_minus_beta, inv_keep, inv_sqrt_d, stream);        \
+            int mask_kind, void* out, int S, int N, long long pos_stride,
+            long long seq_stride, long long mpos_stride,
+            long long mseq_stride, float beta, float one_minus_beta,
+            float inv_keep, float inv_sqrt_d, cudaStream_t stream) {
+#define PMGT_DPL_CASE(X)                                                    \
+  case X:                                                                   \
+    launch_dpl<T, X>(q, k, v, c, mask, m1, m2, mask_kind, out, S, N,        \
+                     pos_stride, seq_stride, mpos_stride, mseq_stride, beta, \
+                     one_minus_beta, inv_keep, inv_sqrt_d, stream);         \
     break;
   switch (dpl) {
     PMGT_DPL_CASE(1)
@@ -199,15 +212,17 @@ void launch(int dpl, const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. mask_kind: 0 = none, 1 = u8, 2 = f32.
-// Launches on `stream` without synchronising and returns
-// cudaGetLastError() (0 on success).
-int pmgt_dual_attention_fwd_sm(const void* q, const void* k, const void* v,
-                               const void* c, const float* mask,
-                               const void* m1, const void* m2, int mask_kind,
-                               void* out, int S, int N, int d, int dtype,
-                               float beta, float one_minus_beta,
-                               float inv_keep, float inv_sqrt_d,
-                               void* stream) {
+// Strides are in elements (see the layout note above). Launches on
+// `stream` without synchronising and returns cudaGetLastError() (0 on
+// success).
+int pmgt_dual_attention_fwd(const void* q, const void* k, const void* v,
+                            const void* c, const float* mask, const void* m1,
+                            const void* m2, int mask_kind, void* out, int S,
+                            int N, int d, int dtype, long long pos_stride,
+                            long long seq_stride, long long mpos_stride,
+                            long long mseq_stride, float beta,
+                            float one_minus_beta, float inv_keep,
+                            float inv_sqrt_d, void* stream) {
   if (S < 1 || S > 32 || d < 32 || d > 256 || d % kWarp != 0 || N < 0 ||
       dtype < 0 || dtype > 1 || mask_kind < 0 || mask_kind > 2)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -215,12 +230,28 @@ int pmgt_dual_attention_fwd_sm(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     launch<float>(d / kWarp, q, k, v, c, mask, m1, m2, mask_kind, out, S, N,
-                  beta, one_minus_beta, inv_keep, inv_sqrt_d, s);
+                  pos_stride, seq_stride, mpos_stride, mseq_stride, beta,
+                  one_minus_beta, inv_keep, inv_sqrt_d, s);
   else
     launch<__nv_bfloat16>(d / kWarp, q, k, v, c, mask, m1, m2, mask_kind,
-                          out, S, N, beta, one_minus_beta, inv_keep,
+                          out, S, N, pos_stride, seq_stride, mpos_stride,
+                          mseq_stride, beta, one_minus_beta, inv_keep,
                           inv_sqrt_d, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The seq-major entry: q, k, v, c, out [S, N, d], keep masks [S, N, S].
+int pmgt_dual_attention_fwd_sm(const void* q, const void* k, const void* v,
+                               const void* c, const float* mask,
+                               const void* m1, const void* m2, int mask_kind,
+                               void* out, int S, int N, int d, int dtype,
+                               float beta, float one_minus_beta,
+                               float inv_keep, float inv_sqrt_d,
+                               void* stream) {
+  return pmgt_dual_attention_fwd(
+      q, k, v, c, mask, m1, m2, mask_kind, out, S, N, d, dtype,
+      static_cast<long long>(N) * d, d, static_cast<long long>(N) * S, S,
+      beta, one_minus_beta, inv_keep, inv_sqrt_d, stream);
 }
 
 }  // extern "C"

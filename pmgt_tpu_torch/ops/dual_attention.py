@@ -1,34 +1,44 @@
-"""PMGT dual attention in the seq-major layout, forward and backward
+"""PMGT dual attention, forward and backward, in the seq-major layout
 (counterparts of the TPU kernels ``_pallas_forward_sm`` and
-``_pallas_backward_sm`` in ``pmgt_tpu/ops/dual_attention.py``).
+``_pallas_backward_sm`` in ``pmgt_tpu/ops/dual_attention.py``) and in the
+batch-major layout (``_pallas_forward`` and ``_pallas_backward``, behind
+the public op ``dual_attention_pallas``).
 
-For each sequence n of q, k, v, c [S, N, d] (N = batch x heads), with the
-additive key mask ``mask_bs`` [N, S]:
+For each sequence n of q, k, v, c (N = batch x heads), with the additive
+key mask ``mask_bs`` [N, S]:
 
     P1  = softmax(1 - cos(c, c) + I + M)
     P2  = softmax(q kᵀ / √d + M)
-    out = (β · P1 · m1/keep + (1 - β) · P2 · m2/keep) · v      [S, N, d]
+    out = (β · P1 · m1/keep + (1 - β) · P2 · m2/keep) · v
 
-where the keep masks m1, m2 [S, N, S] apply only with ``use_dropout``.
-Math is f32 whatever the operand type (f64 operands, which only the CPU
-takes, stay f64); outputs have q's type.
+where the keep masks m1, m2 apply only with ``use_dropout``. Seq-major
+operands are [S, N, d] with keep masks [S, N, S]; batch-major operands are
+[N, S, d] with keep masks [N, S, S]. Math is f32 whatever the operand type
+(f64 operands, which only the CPU takes, stay f64); outputs have q's type.
 
-- ``dual_attention_sm_reference`` / ``dual_attention_sm_backward_reference``:
-  the plain PyTorch versions (the math of ``_fwd_math`` and ``_bwd_math``).
-  The backward recomputes P1 and P2 from the inputs and is a transcription
-  of ``_bwd_math``, not autograd of the forward: at a zero context row
+- ``dual_attention_bm_reference`` / ``dual_attention_bm_backward_reference``:
+  the plain PyTorch versions (the math of ``_fwd_math`` and ``_bwd_math``);
+  the ``_sm_`` references are the same on transposed views. The backward
+  recomputes P1 and P2 from the inputs and is a transcription of
+  ``_bwd_math``, not autograd of the forward: at a zero context row
   autograd through the norm gives NaN where ``_bwd_math`` stays finite.
-- ``dual_attention_sm_forward`` / ``dual_attention_sm_backward``: the raw
-  launchers. CPU tensors take the plain versions; CUDA tensors launch the
-  hand-written kernels (``csrc/dual_attention_fwd.cu``, K1, and
-  ``csrc/dual_attention_bwd.cu``, K2) or raise. They build no autograd
-  node, so they refuse inputs that require grad while grad is enabled.
-  ``dual_attention_sm.launches`` counts K1 launches and
-  ``dual_attention_sm_backward.launches`` K2 launches.
-- ``DualAttentionSm`` / ``dual_attention_sm``: the differentiable op. Its
-  forward is K1 (or the plain forward), its backward K2 (or the plain
-  backward); it saves (q, k, v, c, mask, m1, m2), as ``_fused_sm_fwd``
-  does. No gradient flows to the mask or the keep masks.
+- ``dual_attention_{sm,bm}_forward`` / ``dual_attention_{sm,bm}_backward``:
+  the raw launchers. CPU tensors take the plain versions; CUDA tensors
+  launch the hand-written kernels or raise: ``csrc/dual_attention_fwd.cu``
+  (K1 seq-major, K3 batch-major: one kernel, two stride sets) and
+  ``csrc/dual_attention_bwd.cu`` (K2 and K4, likewise). They build no
+  autograd node, so they refuse inputs that require grad while grad is
+  enabled. Launch counters: ``dual_attention_sm.launches`` (K1),
+  ``dual_attention_sm_backward.launches`` (K2),
+  ``dual_attention_bm_forward.launches`` (K3) and
+  ``dual_attention_bm_backward.launches`` (K4).
+- ``DualAttentionSm`` / ``dual_attention_sm`` and ``DualAttentionBm``: the
+  differentiable ops. They save (q, k, v, c, mask, m1, m2), as
+  ``_fused_sm_fwd`` / ``_fused_fwd`` do. No gradient flows to the mask or
+  the keep masks.
+- ``dual_attention_pallas``: the public batch-major op over [B, h, S, d]
+  inputs, the counterpart of ``pmgt_tpu.ops.dual_attention_pallas``, with
+  an explicit ``torch.Generator`` in place of ``dropout_rng``.
 - ``draw_keep_masks``: the two [S, N, S] bool keep masks, drawn outside
   the kernels so the forward, the backward and the plain batch-major route
   all see one dropout pattern.
@@ -71,7 +81,7 @@ def _probs(qf, kf, cf, add, d):
     return norm_sq, n_outer, cos, p1, p2
 
 
-def dual_attention_sm_reference(
+def dual_attention_bm_reference(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
@@ -83,23 +93,23 @@ def dual_attention_sm_reference(
     keep: float = 1.0,
     use_dropout: bool = False,
 ) -> torch.Tensor:
-    """Plain PyTorch dual attention in the seq-major layout."""
+    """Plain PyTorch dual attention in the batch-major layout: q/k/v/c
+    [N, S, d], mask_bs [N, S], m1/m2 [N, S, S] → [N, S, d]."""
     f = _math_dtype(q)
     d = q.shape[-1]
-    qf, kf, vf, cf = (x.to(f).transpose(0, 1) for x in (q, k, v, c))
+    qf, kf, vf, cf = (x.to(f) for x in (q, k, v, c))
     add = mask_bs.to(f)[:, None, :]  # [N, 1, S]
     _, _, _, p1, p2 = _probs(qf, kf, cf, add, d)
     if use_dropout:
         inv_keep = 1.0 / keep
-        p1 = p1 * m1.to(f).transpose(0, 1) * inv_keep
-        p2 = p2 * m2.to(f).transpose(0, 1) * inv_keep
+        p1 = p1 * m1.to(f) * inv_keep
+        p2 = p2 * m2.to(f) * inv_keep
 
     probs = beta * p1 + (1.0 - beta) * p2  # [N, S, S]
-    out = probs @ vf  # [N, S, d]
-    return out.transpose(0, 1).contiguous().to(q.dtype)
+    return (probs @ vf).to(q.dtype)
 
 
-def dual_attention_sm_backward_reference(
+def dual_attention_bm_backward_reference(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
@@ -112,19 +122,19 @@ def dual_attention_sm_backward_reference(
     keep: float = 1.0,
     use_dropout: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain backward in the seq-major layout: (dq, dk, dv, dc), each
-    [S, N, d], for the output gradient ``g`` [S, N, d]. A transcription of
+    """Plain backward in the batch-major layout: (dq, dk, dv, dc), each
+    [N, S, d], for the output gradient ``g`` [N, S, d]. A transcription of
     the JAX package's ``_bwd_math``."""
     f = _math_dtype(q)
     d = q.shape[-1]
-    qf, kf, vf, cf, gf = (x.to(f).transpose(0, 1) for x in (q, k, v, c, g))
+    qf, kf, vf, cf, gf = (x.to(f) for x in (q, k, v, c, g))
     add = mask_bs.to(f)[:, None, :]
     norm_sq, n_outer, cos, p1, p2 = _probs(qf, kf, cf, add, d)
     inv_sqrt_d = 1.0 / (d**0.5)
     if use_dropout:
         inv_keep = 1.0 / keep
-        m1f = m1.to(f).transpose(0, 1) * inv_keep
-        m2f = m2.to(f).transpose(0, 1) * inv_keep
+        m1f = m1.to(f) * inv_keep
+        m2f = m2.to(f) * inv_keep
         probs = beta * (p1 * m1f) + (1.0 - beta) * (p2 * m2f)
     else:
         probs = beta * p1 + (1.0 - beta) * p2
@@ -148,9 +158,55 @@ def dual_attention_sm_backward_reference(
         norm_sq, min=1e-12
     )
     dc = (gsym / n_outer) @ cf - srow * cf
-    return tuple(
-        x.transpose(0, 1).contiguous().to(q.dtype) for x in (dq, dk, dv, dc)
+    return tuple(x.to(q.dtype) for x in (dq, dk, dv, dc))
+
+
+def _swap01(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """[S, N, ·] ↔ [N, S, ·] (a view; None stays None)."""
+    return None if x is None else x.transpose(0, 1)
+
+
+def dual_attention_sm_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    c: torch.Tensor,
+    mask_bs: torch.Tensor,
+    m1: Optional[torch.Tensor] = None,
+    m2: Optional[torch.Tensor] = None,
+    beta: float = 0.5,
+    keep: float = 1.0,
+    use_dropout: bool = False,
+) -> torch.Tensor:
+    """Plain PyTorch dual attention in the seq-major layout: q/k/v/c
+    [S, N, d], m1/m2 [S, N, S] → [S, N, d]."""
+    q, k, v, c, m1, m2 = map(_swap01, (q, k, v, c, m1, m2))
+    out = dual_attention_bm_reference(
+        q, k, v, c, mask_bs, m1, m2, beta, keep, use_dropout
     )
+    return out.transpose(0, 1).contiguous()
+
+
+def dual_attention_sm_backward_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    c: torch.Tensor,
+    mask_bs: torch.Tensor,
+    m1: Optional[torch.Tensor],
+    m2: Optional[torch.Tensor],
+    g: torch.Tensor,
+    beta: float = 0.5,
+    keep: float = 1.0,
+    use_dropout: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain backward in the seq-major layout: (dq, dk, dv, dc), each
+    [S, N, d], for the output gradient ``g`` [S, N, d]."""
+    q, k, v, c, m1, m2, g = map(_swap01, (q, k, v, c, m1, m2, g))
+    grads = dual_attention_bm_backward_reference(
+        q, k, v, c, mask_bs, m1, m2, g, beta, keep, use_dropout
+    )
+    return tuple(x.transpose(0, 1).contiguous() for x in grads)
 
 
 def draw_keep_masks(
@@ -178,7 +234,8 @@ def _refuse_grad(*xs: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
         raise RuntimeError(
             "the raw dual-attention launchers have no autograd node; call "
-            "dual_attention_sm, whose backward is the K2 kernel"
+            "dual_attention_sm or dual_attention_pallas, whose backward is "
+            "a kernel"
         )
 
 
@@ -192,13 +249,19 @@ def _keep_mask_kind(m1, m2) -> int:
     raise ValueError(f"keep masks must be bool, uint8 or float32, got {m1.dtype}")
 
 
-def _kernel_operands(q, others, mask_bs, m1, m2, use_dropout):
-    """Check the CUDA operands against the kernels' limits; returns the
+def _kernel_operands(q, others, mask_bs, m1, m2, use_dropout, batch_major):
+    """Check the CUDA operands against the kernels' limits. Returns the
     contiguous (q, *others), the f32 mask, the keep masks as u8 or f32 (or
-    None) and the mask kind (0 none, 1 u8, 2 f32)."""
+    None), the mask kind (0 none, 1 u8, 2 f32), (S, N, d) and the element
+    strides (pos, seq, mask pos, mask seq) of the layout."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    s, n, d = q.shape
+    if batch_major:
+        n, s, d = q.shape
+        keep_shape, strides = (n, s, s), (d, s * d, s, s * s)
+    else:
+        s, n, d = q.shape
+        keep_shape, strides = (s, n, s), (n * d, d, n * s, s)
     if q.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"operands must be float32 or bfloat16, got {q.dtype}")
     if not 1 <= s <= MAX_SEQ or d % 32 or not 32 <= d <= MAX_HEAD_DIM:
@@ -216,8 +279,8 @@ def _kernel_operands(q, others, mask_bs, m1, m2, use_dropout):
         if m1 is None or m2 is None:
             raise ValueError("use_dropout needs both keep masks m1 and m2")
         for m in (m1, m2):
-            if tuple(m.shape) != (s, n, s) or m.device != q.device:
-                raise ValueError(f"keep masks must be [{s}, {n}, {s}] on {q.device}")
+            if tuple(m.shape) != keep_shape or m.device != q.device:
+                raise ValueError(f"keep masks must be {list(keep_shape)} on {q.device}")
         mask_kind = _keep_mask_kind(m1, m2)
         m1, m2 = (
             m.contiguous().view(torch.uint8) if m.dtype == torch.bool
@@ -230,30 +293,73 @@ def _kernel_operands(q, others, mask_bs, m1, m2, use_dropout):
     for x in xs:
         if x.data_ptr() % 16:
             raise ValueError("operands must be 16-byte aligned")
-    return xs, mask_bs.to(torch.float32).contiguous(), m1, m2, mask_kind
+    mask = mask_bs.to(torch.float32).contiguous()
+    return xs, mask, m1, m2, mask_kind, (s, n, d), strides
 
 
 def _ptr(m):
     return None if m is None else m.data_ptr()
 
 
-def _fwd_fn():
-    fn = build.load("dual_attention_fwd").pmgt_dual_attention_fwd_sm
-    if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, p, p, i, p, i, i, i, i, f, f, f, f, p]
-        fn.restype = i
-    return fn
-
-
-def _bwd_fn():
-    fn = build.load("dual_attention_bwd").pmgt_dual_attention_bwd
+def _entry(lib: str, name: str, n_out: int):
+    """The strided C entry ``name`` of kernel library ``lib``, typed: q, k,
+    v, c, mask, m1, m2, mask_kind, [g,] the outputs, S, N, d, dtype, four
+    strides, beta, 1 - beta, 1 / keep, 1 / √d, stream."""
+    fn = getattr(build.load(lib), name)
     if fn.argtypes is None:
         p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        fn.argtypes = ([p] * 7 + [i] + [p] * 5 + [i] * 4 + [ll] * 4
-                       + [f] * 4 + [p])
+        fn.argtypes = [p] * 7 + [i] + [p] * n_out + [i] * 4 + [ll] * 4 + [f] * 4 + [p]
         fn.restype = i
     return fn
+
+
+def _scalars(beta, keep, mask_kind, d, device):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    return (float(beta), float(1.0 - beta),
+            float(1.0 / keep) if mask_kind else 1.0, float(1.0 / (d**0.5)),
+            stream)
+
+
+def _launch_forward(q, k, v, c, mask_bs, m1, m2, beta, keep, use_dropout,
+                    batch_major):
+    """K1 (seq-major strides) or K3 (batch-major strides): one kernel, one
+    strided C entry. Returns the output."""
+    (q, k, v, c), mask, m1, m2, mask_kind, (s, n, d), strides = _kernel_operands(
+        q, (k, v, c), mask_bs, m1, m2, use_dropout, batch_major
+    )
+    out = torch.empty_like(q)
+    fn = _entry("dual_attention_fwd", "pmgt_dual_attention_fwd", 1)
+    with torch.cuda.device(q.device):
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), c.data_ptr(),
+            mask.data_ptr(), _ptr(m1), _ptr(m2), mask_kind, out.data_ptr(),
+            s, n, d, _KERNEL_DTYPES[q.dtype],
+            *strides, *_scalars(beta, keep, mask_kind, d, q.device),
+        )
+    if rc != 0:
+        raise RuntimeError(f"dual_attention_fwd launch failed: CUDA error {rc}")
+    return out
+
+
+def _launch_backward(q, k, v, c, mask_bs, m1, m2, g, beta, keep, use_dropout,
+                     batch_major):
+    """K2 (seq-major strides) or K4 (batch-major strides): one kernel, one
+    strided C entry. Returns (dq, dk, dv, dc)."""
+    (q, k, v, c, g), mask, m1, m2, mask_kind, (s, n, d), strides = _kernel_operands(
+        q, (k, v, c, g), mask_bs, m1, m2, use_dropout, batch_major
+    )
+    grads = tuple(torch.empty_like(q) for _ in range(4))
+    fn = _entry("dual_attention_bwd", "pmgt_dual_attention_bwd", 5)
+    with torch.cuda.device(q.device):
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), c.data_ptr(),
+            mask.data_ptr(), _ptr(m1), _ptr(m2), mask_kind, g.data_ptr(),
+            *(x.data_ptr() for x in grads), s, n, d, _KERNEL_DTYPES[q.dtype],
+            *strides, *_scalars(beta, keep, mask_kind, d, q.device),
+        )
+    if rc != 0:
+        raise RuntimeError(f"dual_attention_bwd launch failed: CUDA error {rc}")
+    return grads
 
 
 def dual_attention_sm_forward(
@@ -277,24 +383,8 @@ def dual_attention_sm_forward(
         return dual_attention_sm_reference(
             q, k, v, c, mask_bs, m1, m2, beta, keep, use_dropout
         )
-    (q, k, v, c), mask, m1, m2, mask_kind = _kernel_operands(
-        q, (k, v, c), mask_bs, m1, m2, use_dropout
-    )
-    s, n, d = q.shape
-    out = torch.empty_like(q)
-    fn = _fwd_fn()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), c.data_ptr(),
-            mask.data_ptr(), _ptr(m1), _ptr(m2), mask_kind, out.data_ptr(),
-            s, n, d, _KERNEL_DTYPES[q.dtype],
-            float(beta), float(1.0 - beta),
-            float(1.0 / keep) if mask_kind else 1.0,
-            float(1.0 / (d**0.5)), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"dual_attention_fwd launch failed: CUDA error {rc}")
+    out = _launch_forward(q, k, v, c, mask_bs, m1, m2, beta, keep,
+                          use_dropout, batch_major=False)
     dual_attention_sm.launches += 1
     return out
 
@@ -320,26 +410,8 @@ def dual_attention_sm_backward(
         return dual_attention_sm_backward_reference(
             q, k, v, c, mask_bs, m1, m2, g, beta, keep, use_dropout
         )
-    (q, k, v, c, g), mask, m1, m2, mask_kind = _kernel_operands(
-        q, (k, v, c, g), mask_bs, m1, m2, use_dropout
-    )
-    s, n, d = q.shape
-    grads = tuple(torch.empty_like(q) for _ in range(4))
-    fn = _bwd_fn()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), c.data_ptr(),
-            mask.data_ptr(), _ptr(m1), _ptr(m2), mask_kind, g.data_ptr(),
-            *(x.data_ptr() for x in grads),
-            s, n, d, _KERNEL_DTYPES[q.dtype],
-            n * d, d, n * s, s,  # seq-major strides: [S, N, d], [S, N, S]
-            float(beta), float(1.0 - beta),
-            float(1.0 / keep) if mask_kind else 1.0,
-            float(1.0 / (d**0.5)), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"dual_attention_bwd launch failed: CUDA error {rc}")
+    grads = _launch_backward(q, k, v, c, mask_bs, m1, m2, g, beta, keep,
+                             use_dropout, batch_major=False)
     dual_attention_sm_backward.launches += 1
     return grads
 
@@ -347,8 +419,67 @@ def dual_attention_sm_backward(
 dual_attention_sm_backward.launches = 0
 
 
+def dual_attention_bm_forward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    c: torch.Tensor,
+    mask_bs: torch.Tensor,
+    m1: Optional[torch.Tensor] = None,
+    m2: Optional[torch.Tensor] = None,
+    beta: float = 0.5,
+    keep: float = 1.0,
+    use_dropout: bool = False,
+) -> torch.Tensor:
+    """Raw batch-major forward (no autograd node): q/k/v/c [N, S, d],
+    mask_bs [N, S], m1/m2 [N, S, S] → [N, S, d]. CPU tensors run the plain
+    version; CUDA tensors launch K3 or raise."""
+    _refuse_grad(q, k, v, c)
+    if q.device.type == "cpu":
+        return dual_attention_bm_reference(
+            q, k, v, c, mask_bs, m1, m2, beta, keep, use_dropout
+        )
+    out = _launch_forward(q, k, v, c, mask_bs, m1, m2, beta, keep,
+                          use_dropout, batch_major=True)
+    dual_attention_bm_forward.launches += 1
+    return out
+
+
+dual_attention_bm_forward.launches = 0
+
+
+def dual_attention_bm_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    c: torch.Tensor,
+    mask_bs: torch.Tensor,
+    m1: Optional[torch.Tensor],
+    m2: Optional[torch.Tensor],
+    g: torch.Tensor,
+    beta: float = 0.5,
+    keep: float = 1.0,
+    use_dropout: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Raw batch-major backward (no autograd node): (dq, dk, dv, dc)
+    [N, S, d] for the output gradient ``g``. CPU tensors run the plain
+    version; CUDA tensors launch K4 or raise."""
+    _refuse_grad(q, k, v, c, g)
+    if q.device.type == "cpu":
+        return dual_attention_bm_backward_reference(
+            q, k, v, c, mask_bs, m1, m2, g, beta, keep, use_dropout
+        )
+    grads = _launch_backward(q, k, v, c, mask_bs, m1, m2, g, beta, keep,
+                             use_dropout, batch_major=True)
+    dual_attention_bm_backward.launches += 1
+    return grads
+
+
+dual_attention_bm_backward.launches = 0
+
+
 # ----------------------------------------------------------------------
-# the differentiable op
+# the differentiable ops
 # ----------------------------------------------------------------------
 
 class DualAttentionSm(torch.autograd.Function):
@@ -368,6 +499,29 @@ class DualAttentionSm(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, c, mask_bs, m1, m2 = ctx.saved_tensors
         dq, dk, dv, dc = dual_attention_sm_backward(
+            q, k, v, c, mask_bs, m1, m2, g.contiguous(), *ctx.hyper
+        )
+        return dq, dk, dv, dc, None, None, None, None, None, None
+
+
+class DualAttentionBm(torch.autograd.Function):
+    """Batch-major dual attention (q/k/v/c [N, S, d], mask_bs [N, S],
+    m1/m2 [N, S, S]) with K3 as forward and K4 as backward (or their
+    plain versions on the CPU): the counterpart of ``_fused``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, c, mask_bs, m1, m2, beta, keep, use_dropout):
+        out = dual_attention_bm_forward(
+            q, k, v, c, mask_bs, m1, m2, beta, keep, use_dropout
+        )
+        ctx.save_for_backward(q, k, v, c, mask_bs, m1, m2)
+        ctx.hyper = (beta, keep, use_dropout)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, c, mask_bs, m1, m2 = ctx.saved_tensors
+        dq, dk, dv, dc = dual_attention_bm_backward(
             q, k, v, c, mask_bs, m1, m2, g.contiguous(), *ctx.hyper
         )
         return dq, dk, dv, dc, None, None, None, None, None, None
@@ -394,3 +548,46 @@ def dual_attention_sm(
 
 
 dual_attention_sm.launches = 0
+
+
+def dual_attention_pallas(
+    query: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    ctx: torch.Tensor,
+    additive_mask: Optional[torch.Tensor],
+    beta: float,
+    dropout_rate: float,
+    deterministic: bool,
+    generator: Optional[torch.Generator],
+) -> torch.Tensor:
+    """Batch-major dual attention over [B, h, S, d] inputs → [B, h, S, d]
+    (the counterpart of ``pmgt_tpu.ops.dual_attention_pallas``, the
+    drop-in for the plain formulation). Heads fold into the batch:
+    ``additive_mask`` [B, 1, 1, S] (or broadcastable; None = zeros) becomes
+    [B·h, S]; with dropout on, the keep masks m1 then m2 [B·h, S, S] are
+    drawn from ``generator`` (``uniform < 1 - dropout_rate``), which is then
+    required. CPU tensors run the plain versions; CUDA tensors launch K3
+    forward and K4 backward or raise."""
+    b, h, s, d = query.shape
+    q, k, v, c = (x.reshape(b * h, s, d) for x in (query, key, value, ctx))
+    if additive_mask is not None:
+        mask = torch.broadcast_to(additive_mask, (b, h, 1, s)).reshape(b * h, s)
+    else:
+        mask = torch.zeros((b * h, s), dtype=q.dtype, device=q.device)
+    use_dropout = (not deterministic) and dropout_rate > 0.0
+    keep = 1.0 - dropout_rate
+    m1 = m2 = None
+    if use_dropout:
+        if generator is None:
+            raise ValueError(
+                "a generator is required when dropout_rate > 0 and "
+                "deterministic=False"
+            )
+        dev = generator.device
+        m1 = torch.rand((b * h, s, s), generator=generator, device=dev) < keep
+        m2 = torch.rand((b * h, s, s), generator=generator, device=dev) < keep
+    out = DualAttentionBm.apply(
+        q, k, v, c, mask, m1, m2, float(beta), float(keep), use_dropout
+    )
+    return out.reshape(b, h, s, d)

@@ -1,6 +1,6 @@
-"""PMGT pre-training workload: training steps, validation pair-AUC and
-per-node embedding export (counterpart of ``pmgt_tpu/tasks/pmgt_task.py``
-without its engine, checkpoints and CLI).
+"""PMGT pre-training workload: training steps, validation pair-AUC,
+per-node embedding export and the workload contract the CLI drives
+(counterpart of ``pmgt_tpu/tasks/pmgt_task.py``).
 
 Per phase (``valid``, ``test``, ``inference``) the task draws ONE context
 per node for the whole graph (``sample_all_contexts``) and, for the
@@ -21,6 +21,11 @@ over ``accumulation_step`` micro-batches; AdamW, the schedule and the clip
 come from ``train/optim.py``. ``train_epoch`` returns the per-step losses
 as a device tensor and never waits on the device.
 
+The engine (``train/engine.fit``) checkpoints ``state_dict()`` (model,
+optimizer, step count) and on resume calls ``on_resume(global_step,
+start_epoch)``, so a resumed run continues the per-step seeds and the
+schedule where it stopped.
+
 Torch generators give other streams than JAX keys: the seeds are the same
 integers and the distributions are the same, the draws are not.
 """
@@ -28,6 +33,7 @@ from __future__ import annotations
 
 import logging
 import math
+import os
 from typing import Any, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
@@ -40,7 +46,7 @@ from pmgt_tpu_torch.core.config import (
     resolve_fusion_strategy,
 )
 from pmgt_tpu_torch.core.device import resolve_device
-from pmgt_tpu_torch.data.artifacts import DatasetArtifacts
+from pmgt_tpu_torch.data.artifacts import DatasetArtifacts, load_artifacts
 from pmgt_tpu_torch.graph.container import NUM_SPECIAL_NODES
 from pmgt_tpu_torch.metrics.ranking import roc_auc, stable_sigmoid
 from pmgt_tpu_torch.models.pmgt import PMGTForPreTraining
@@ -49,7 +55,10 @@ from pmgt_tpu_torch.sampling.pairs import (
     sample_all_contexts,
     sample_all_pairs,
 )
+from pmgt_tpu_torch.train import engine
+from pmgt_tpu_torch.train.checkpoints import restore_checkpoint
 from pmgt_tpu_torch.train.optim import make_optimizer
+from pmgt_tpu_torch.train.registry import RunRegistry, locate_eval_ckpt
 
 logger = logging.getLogger("pmgt_tpu_torch")
 
@@ -219,10 +228,29 @@ class PMGTTask:
         node per epoch."""
         self._get_ctx(("train", epoch))
 
-    def on_resume(self, global_step: int) -> None:
+    def on_resume(self, global_step: int, start_epoch: int) -> None:
         """Continue the per-step generator seeds where an interrupted run
         left off."""
         self._step_count = int(global_step)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The checkpointed state: model, optimizer (with its update count,
+        which the schedule reads) and the step count."""
+        return {
+            "model": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "step_count": self._step_count,
+        }
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self._step_count = int(state["step_count"])
+
+    def should_prune(self, value: float, epoch: int) -> bool:
+        """Never: trial pruning belongs to the hp-tuning command, which is
+        not ported."""
+        return False
 
     def _epoch_schedule(self, epoch: int) -> np.ndarray:
         """The epoch's shuffled target ids (the JAX package's derivation)."""
@@ -364,8 +392,43 @@ class PMGTTask:
 
 
 # ----------------------------------------------------------------------
-# workload contract (the data split)
+# workload contract (the functions the CLI's ``train_model`` calls)
 # ----------------------------------------------------------------------
+
+# Options the JAX package has and the port does not yet: option → (the
+# values the port runs, the ROADMAP.md item that ports the rest). Any other
+# value raises NotImplementedError when a run starts (not under
+# --save-args).
+UNPORTED_OPTIONS = {
+    "mp_enabled": ((False,), "§1 item 4, the bf16 compute policy"),
+    "position_embedding_type": (("absolute",), "§1 item 4, relative positions"),
+    "gradient_checkpointing": ((False,), "§1 item 2b, gradient checkpointing"),
+    "ctx_cache": ((True,), "§1 item 2b, per-step sampling"),
+    "shard_feat_tables": ((False,), "§1 item 6, multi-GPU sharding"),
+    "shard_graph_tables": ((False,), "§1 item 6, multi-GPU sharding"),
+    "feat_tables_dtype": ((None, "float32"), "§1 item 6, bf16 and int8 feature tables"),
+    "num_devices": ((None, 1), "§1 item 6, multi-GPU"),
+    "profile_dir": ((None,), "§1 item 6, --profile-dir"),
+}
+
+
+def check_args(args: TrainArgs) -> None:
+    if args.early_criterion not in ("loss", "auc"):
+        raise ValueError(f"invalid early_criterion {args.early_criterion}")
+    if args.mode in ("eval", "inference") and args.run_id is None:
+        raise ValueError(f"mode {args.mode} requires --run-id")
+    for name, (ported, item) in UNPORTED_OPTIONS.items():
+        value = getattr(args, name, ported[0])
+        if value not in ported:
+            raise NotImplementedError(
+                f"{name}={value!r} is not ported to pmgt_tpu_torch yet "
+                f"(ROADMAP.md {item})"
+            )
+
+
+def init_run(args: TrainArgs) -> None:
+    np.random.seed(args.seed)
+
 
 def train_valid_split(nodes: np.ndarray, valid_size: float, seed: int):
     """(train, valid) split of ``nodes``: the split sklearn's
@@ -380,10 +443,17 @@ def train_valid_split(nodes: np.ndarray, valid_size: float, seed: int):
 
 
 def init_dataloader(args: TrainArgs, ctx: Dict[str, Any]) -> None:
-    """The train/valid node split of the real node ids
-    (``train_valid_split`` with ``args.valid_size`` and ``args.seed``).
-    Expects ``ctx["artifacts"]``."""
-    artifacts = ctx["artifacts"]
+    """The dataset (``ctx["artifacts"]``, loaded from ``args.data_dir`` /
+    ``args.dataset_name`` when absent) and the train/valid node split of
+    the real node ids (``train_valid_split`` with ``args.valid_size`` and
+    ``args.seed``). With ``args.run_id`` the model and sampling
+    hyperparameters come from that run first."""
+    if args.run_id is not None:
+        _restore_params_from_run(args)
+    artifacts = ctx.get("artifacts") or load_artifacts(
+        args.data_dir, args.dataset_name
+    )
+    ctx["artifacts"] = artifacts
     all_nodes = np.arange(
         NUM_SPECIAL_NODES,
         artifacts.num_nodes + NUM_SPECIAL_NODES,
@@ -401,3 +471,93 @@ def init_dataloader(args: TrainArgs, ctx: Dict[str, Any]) -> None:
         len(valid_nodes),
         artifacts.graph.max_degree,
     )
+
+
+def _restore_params_from_run(args: TrainArgs) -> None:
+    """Reload the model and sampling hyperparameters of a previous run."""
+    params = RunRegistry(args.log_dir).get_run(args.run_id).params
+    for name in (
+        "hidden_size",
+        "intermediate_size",
+        "num_hidden_layers",
+        "num_attention_heads",
+        "beta",
+        "position_embedding_type",
+        "random_node_ratio",
+        "mask_node_ratio",
+        "max_ctx_neigh",
+        "max_total_samples",
+        "min_neg_samples",
+        "hop_sampling_sizes",
+    ):
+        if name in params:
+            args.extra[name] = params[name]
+
+
+def init_model(args: TrainArgs, ctx: Dict[str, Any]) -> None:
+    """``ctx["task"]``: a ``PMGTTask`` on ``ctx.get("device", "cuda")``."""
+    ctx["task"] = PMGTTask(
+        args, ctx["artifacts"], ctx["train_nodes"], ctx["valid_nodes"],
+        device=ctx.get("device", "cuda"),
+    )
+
+
+def _restore_params_only(path: str, task: PMGTTask) -> None:
+    """Load only the model from a checkpoint: evaluation and export never
+    touch the optimizer state."""
+    payload = restore_checkpoint(path)
+    task.model.load_state_dict(payload["state"]["model"])
+
+
+def _maybe_restore(args: TrainArgs, task: PMGTTask, load_best: bool) -> None:
+    if args.run_id is None:
+        return
+    path = locate_eval_ckpt(
+        RunRegistry(args.log_dir), None, args.run_id, load_best=load_best
+    )
+    if path is None:
+        return
+    _restore_params_only(path, task)
+    logger.info("restored checkpoint from %s", path)
+
+
+def train(args: TrainArgs, ctx: Dict[str, Any], registry, run) -> Dict[str, float]:
+    return engine.fit(
+        ctx["task"],
+        num_epochs=args.num_epochs,
+        early=args.early,
+        early_criterion=args.early_criterion,
+        registry=registry,
+        run=run,
+        resume=args.run_id is not None,
+        swa_start=args.extra.get("swa_start"),
+        eval_interval=args.eval_interval,
+        ckpt_interval=args.ckpt_interval,
+        eval_init=bool(args.extra.get("eval_init", False)),
+    )
+
+
+def test(args: TrainArgs, ctx: Dict[str, Any], registry, run) -> Dict[str, float]:
+    """Evaluate the best checkpoint on the validation nodes with the test
+    phase's draw (the reference reuses valid as test for PMGT)."""
+    task: PMGTTask = ctx["task"]
+    path = locate_eval_ckpt(registry, run, args.run_id)
+    if path is not None:
+        _restore_params_only(path, task)
+    return task.evaluate("test")
+
+
+def inference(args: TrainArgs, ctx: Dict[str, Any], registry, run) -> np.ndarray:
+    """Export the best checkpoint's per-node embeddings [num_nodes,
+    hidden] float32, saved to ``args.inference_result_path`` if given."""
+    task: PMGTTask = ctx["task"]
+    _maybe_restore(args, task, load_best=True)
+    emb = task.export_embeddings()
+    if args.inference_result_path:
+        os.makedirs(
+            os.path.dirname(os.path.abspath(args.inference_result_path)),
+            exist_ok=True,
+        )
+        np.save(args.inference_result_path, emb)
+        logger.info("saved node embeddings to %s", args.inference_result_path)
+    return emb

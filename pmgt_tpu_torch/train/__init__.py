@@ -1,1 +1,2 @@
-"""Training utilities: optimizer and learning-rate schedules."""
+"""Training: optimizer and schedules, the engine (``fit``), checkpoints and
+the run registry."""

@@ -16,7 +16,7 @@
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 from torch import nn
@@ -108,7 +108,9 @@ class Optimizer:
     """A torch optimizer behind the schedule and the optional clip.
     ``step()`` reads the parameters' ``.grad``, clips them, sets each
     group's lr to ``schedule(count)`` and steps; ``count`` is the number
-    of updates taken."""
+    of updates taken. ``state_dict`` / ``load_state_dict`` carry the inner
+    optimizer's state and ``count``, so a resumed run continues the
+    schedule where it stopped."""
 
     def __init__(
         self,
@@ -124,6 +126,13 @@ class Optimizer:
     @property
     def params(self):
         return [p for g in self.inner.param_groups for p in g["params"]]
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"inner": self.inner.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.inner.load_state_dict(state["inner"])
+        self.count = int(state["count"])
 
     def zero_grad(self) -> None:
         self.inner.zero_grad(set_to_none=True)

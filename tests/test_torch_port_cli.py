@@ -1,0 +1,182 @@
+"""The port's command line against the JAX package's, and ``train-pmgt``
+end to end on the CPU.
+
+- ``--save-args`` writes the JAX CLI's JSON for the same argv (the JAX side
+  through ``click.testing.CliRunner`` on ``pmgt_tpu.cli.main.cli``, the port
+  through ``main(argv)``), and each package loads the other's file.
+- ``make-synthetic`` writes the JAX command's dataset.
+- ``make-synthetic`` → ``train-pmgt`` (2 epochs) → resume to 3 →
+  ``--mode eval`` → ``--mode inference`` at a few layers and narrow widths:
+  status, checkpoints, metrics rows, the exported ``[num_nodes, hidden]``
+  float32 ``.npy``, and eval leaving the run's status as it was (the JAX
+  CLI relabels it).
+- Options whose feature is not ported raise ``NotImplementedError`` when a
+  run starts, and not under ``--save-args``.
+"""
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+import pytest
+from click.testing import CliRunner
+
+from pmgt_tpu.cli import data_cmds as _jax_data_cmds  # noqa: F401  (registers make-synthetic)
+from pmgt_tpu.cli.main import cli as jax_cli
+from pmgt_tpu.core.config import TrainArgs as JTrainArgs
+from pmgt_tpu_torch.cli.main import main
+from pmgt_tpu_torch.core.config import TrainArgs
+from pmgt_tpu_torch.data.artifacts import load_artifacts
+from pmgt_tpu_torch.tasks.pmgt_task import UNPORTED_OPTIONS
+from pmgt_tpu_torch.train.checkpoints import read_best_info
+from pmgt_tpu_torch.train.registry import RunRegistry
+
+REQUIRED = ["--model-name", "pmgt", "--dataset-name", "synth"]
+ARGVS = {
+    "defaults": [],
+    "options": [
+        "--seed", "7", "--num-epochs", "3", "--lr", "0.002", "--early", "2",
+        "--early-criterion", "auc", "--train-batch-size", "64",
+        "--gradient-max-norm", "1.5", "--accumulation-step", "2",
+        "--scheduler-warmup", "0.1", "--scheduler-type", "cosine",
+        "--tags", "team", "recsys", "--tags", "k", "v", "--eval-interval", "2",
+        "--ckpt-interval", "3", "--swa-start", "1", "--eval-init",
+        "--hop-sampling-sizes", "8", "--hop-sampling-sizes", "4",
+        "--hidden-size", "64", "--attention-impl", "xla", "--no-scan-epoch",
+        "--fusion-strategy", "gather_rows", "--run-name", "r1",
+    ],
+    "unported": [
+        "--mp-enabled", "--gradient-checkpointing", "--no-ctx-cache",
+        "--shard-feat-tables", "--shard-graph-tables", "--feat-tables-dtype",
+        "int8", "--num-devices", "4", "--profile-dir", "/tmp/prof",
+        "--position-embedding-type", "relative_key", "--num-processes", "2",
+    ],
+}
+
+
+@pytest.mark.parametrize("name", sorted(ARGVS))
+def test_save_args_json_equals_the_jax_clis(tmp_path, name):
+    argv = ["train-pmgt", *REQUIRED, *ARGVS[name]]
+    jpath, tpath = str(tmp_path / "jax.json"), str(tmp_path / "torch.json")
+    res = CliRunner().invoke(jax_cli, ["--save-args", jpath, *argv], obj={})
+    assert res.exit_code == 0, res.output
+    assert main(["--save-args", tpath, *argv]) is None
+    with open(jpath) as f, open(tpath) as g:
+        jdict, tdict = json.load(f), json.load(g)
+    assert tdict == jdict
+    assert TrainArgs.load(jpath).to_dict() == tdict
+    assert JTrainArgs.load(tpath).to_dict() == jdict
+
+
+def test_make_synthetic_writes_the_jax_commands_dataset(tmp_path):
+    opts = ["--num-nodes", "60", "--num-users", "30", "--visual-dim", "16",
+            "--textual-dim", "8", "--avg-degree", "4", "--seed", "2"]
+    res = CliRunner().invoke(
+        jax_cli, ["make-synthetic", "--out-dir", str(tmp_path / "J"), *opts], obj={})
+    assert res.exit_code == 0, res.output
+    main(["make-synthetic", "--out-dir", str(tmp_path / "T"), *opts])
+    j, t = load_artifacts(str(tmp_path), "J"), load_artifacts(str(tmp_path), "T")
+    for name in ("nbr_ids", "nbr_logits", "degrees", "alias_prob", "alias_idx"):
+        np.testing.assert_array_equal(getattr(t.graph, name), getattr(j.graph, name))
+    for a, b in zip(t.feat_init_embs, j.feat_init_embs, strict=True):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(t.train_pairs, j.train_pairs)
+
+
+SMALL = ["--train-batch-size", "16", "--test-batch-size", "32", "--hidden-size", "32",
+         "--intermediate-size", "32", "--num-hidden-layers", "2",
+         "--early-criterion", "auc"]
+
+
+@pytest.fixture(scope="module")
+def data_dir(tmp_path_factory):
+    d = tmp_path_factory.mktemp("data")
+    main(["make-synthetic", "--out-dir", str(d / "synth"), "--num-nodes", "150",
+          "--num-users", "40", "--visual-dim", "64", "--textual-dim", "32",
+          "--avg-degree", "6"])
+    return str(d)
+
+
+def _cmd(data_dir, log_dir, *extra):
+    return ["--device", "cpu", "train-pmgt", *REQUIRED, "--data-dir", data_dir,
+            "--log-dir", log_dir, *SMALL, *extra]
+
+
+def test_train_resume_eval_inference_on_cpu(tmp_path, data_dir, capsys):
+    logs = str(tmp_path / "logs")
+    results = main(_cmd(data_dir, logs, "--num-epochs", "2"))
+    assert set(results) == {"test/auc", "test/loss"}
+    reg = RunRegistry(logs)
+    (run,) = reg.list_runs()
+    assert run.status == "FINISHED"
+    assert {n for n in ("best", "last") if os.path.isdir(os.path.join(run.ckpt_dir, n))} == {"best", "last"}
+    best = read_best_info(run.ckpt_dir)
+    assert best["monitor"] == "val/auc"
+    rows = [m for m in run.metrics() if m["name"] == "val/auc"]
+    steps = rows[0]["step"]
+    assert steps == 120 // 16  # 150 nodes, 30 of them valid
+    assert [m["epoch"] for m in rows] == [0, 1] and [m["step"] for m in rows] == [steps, 2 * steps]
+    assert run.params["hidden_size"] == 32
+
+    # resume to a third epoch: the hyperparameters come from the run
+    main(["--device", "cpu", "train-pmgt", *REQUIRED, "--data-dir", data_dir,
+          "--log-dir", logs, "--train-batch-size", "16", "--test-batch-size", "32",
+          "--early-criterion", "auc", "--num-epochs", "3", "--run-id", run.run_id])
+    rows = [m for m in run.metrics() if m["name"] == "val/auc"]
+    assert [m["epoch"] for m in rows] == [0, 1, 2] and rows[-1]["step"] == 3 * steps
+    assert run.status == "FINISHED"
+
+    # eval leaves the status as it was, whatever it was
+    reg.set_status(run, "INTERRUPTED")
+    out = main(_cmd(data_dir, logs, "--mode", "eval", "--run-id", run.run_id))
+    assert np.isfinite(list(out.values())).all() and run.status == "INTERRUPTED"
+
+    path = str(tmp_path / "out" / "emb.npy")
+    emb = main(_cmd(data_dir, logs, "--mode", "inference", "--run-id", run.run_id,
+                    "--inference-result-path", path))
+    saved = np.load(path)
+    assert saved.shape == (150, 32) and saved.dtype == np.float32
+    assert np.isfinite(saved).all() and np.array_equal(saved, emb)
+    assert run.status == "INTERRUPTED" and len(reg.list_runs()) == 1
+
+    capsys.readouterr()
+    main(["runs", "--log-dir", logs])
+    main(["runs", "--log-dir", logs, "--run-id", run.run_id])
+    printed = capsys.readouterr().out
+    assert run.run_id in printed and "INTERRUPTED" in printed
+    assert f"best: val/auc = {best['value']:.6g}" in printed
+
+
+def test_eval_and_inference_need_a_run_with_a_checkpoint(tmp_path, data_dir):
+    logs = str(tmp_path / "logs")
+    with pytest.raises(ValueError, match="requires --run-id"):
+        main(_cmd(data_dir, logs, "--mode", "eval"))
+    run = RunRegistry(logs).create_run("baseline", {})
+    with pytest.raises(FileNotFoundError, match="refusing"):
+        main(_cmd(data_dir, logs, "--mode", "eval", "--run-id", run.run_id))
+    assert run.status == "RUNNING"  # not this invocation's run
+
+
+@pytest.mark.parametrize("option", [
+    ["--mp-enabled"], ["--gradient-checkpointing"], ["--no-ctx-cache"],
+    ["--shard-feat-tables"], ["--feat-tables-dtype", "bfloat16"],
+    ["--num-devices", "2"], ["--profile-dir", "p"],
+    ["--position-embedding-type", "relative_key"],
+    ["--coordinator-address", "localhost:1234"],
+])
+def test_unported_options_raise_when_a_run_starts(tmp_path, data_dir, option):
+    logs = str(tmp_path / "logs")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        main(_cmd(data_dir, logs, *option))
+    assert not os.path.exists(logs)  # refused before any run was created
+    main(["--save-args", str(tmp_path / "a.json"), *_cmd(data_dir, logs, *option)[2:]])
+    assert os.path.exists(tmp_path / "a.json")
+
+
+def test_every_unported_option_is_named():
+    assert set(UNPORTED_OPTIONS) == {
+        "mp_enabled", "position_embedding_type", "gradient_checkpointing",
+        "ctx_cache", "shard_feat_tables", "shard_graph_tables",
+        "feat_tables_dtype", "num_devices", "profile_dir",
+    }

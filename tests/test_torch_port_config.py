@@ -4,9 +4,10 @@
   defaults, field by field; ``TrainArgs`` the ones the serving and
   training slices read.
 - ``roc_auc`` / ``stable_sigmoid`` agree with the JAX package's copies.
-- ``pmgt_tpu_torch`` (and ``chip_smoke.py``) import neither JAX nor any
-  module of ``pmgt_tpu``: checked on the source and by importing the
-  package in a fresh interpreter where ``import jax`` fails.
+- ``pmgt_tpu_torch`` (and ``chip_smoke.py``) import neither JAX, click,
+  sklearn nor any module of ``pmgt_tpu`` (the card machine has none of
+  them): checked on the source and by importing every module of the
+  package in a fresh interpreter where those imports fail.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from pmgt_tpu_torch.core import config as tconfig
 from pmgt_tpu_torch.metrics import ranking as tranking
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pmgt_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pmgt_tpu", "click", "sklearn")
 
 
 def _fields(cls):
@@ -55,18 +56,31 @@ def test_config_properties_match():
 
 
 def test_train_args_subset_defaults():
+    """The port's TrainArgs has every field of the JAX package's, in the
+    same order, with the same defaults (the run, log and device fields
+    arrived with the engine and CLI)."""
     j, t = _fields(jconfig.TrainArgs), _fields(tconfig.TrainArgs)
-    assert set(t) == {
-        "seed", "valid_size", "num_epochs", "optim", "lr", "decay",
-        "mp_enabled", "early", "early_criterion", "train_batch_size",
-        "test_batch_size", "gradient_max_norm", "accumulation_step",
-        "scheduler_warmup", "scheduler_type", "eval_interval", "extra",
-    }
-    assert all(t[k] == j[k] for k in t)
+    assert list(t) == list(j)
+    assert t == j
     args = tconfig.TrainArgs(extra={"hidden_size": 64})
     assert args.hidden_size == 64
     with pytest.raises(AttributeError):
         args.nope
+
+
+def test_train_args_json_round_trips_across_packages(tmp_path):
+    kw = dict(seed=4, run_id="abc", model_name="pmgt", tags=(("a", "b"),),
+              mesh_shape=(1, 1), num_epochs=3, eval_interval=2,
+              extra={"hidden_size": 64, "hop_sampling_sizes": [8, 4]})
+    j, t = jconfig.TrainArgs(**kw), tconfig.TrainArgs(**kw)
+    assert t.to_dict() == j.to_dict()
+    j.save(str(tmp_path / "j.json"))
+    t.save(str(tmp_path / "t.json"))
+    assert (tmp_path / "j.json").read_text() == (tmp_path / "t.json").read_text()
+    back = tconfig.TrainArgs.load(str(tmp_path / "j.json"))
+    assert back.to_dict() == t.to_dict() and back.tags == (("a", "b"),)
+    assert back.mesh_shape == (1, 1) and back.hop_sampling_sizes == [8, 4]
+    assert jconfig.TrainArgs.load(str(tmp_path / "t.json")).to_dict() == j.to_dict()
 
 
 @pytest.mark.parametrize("req,n", [(None, 10), ("auto", 60_000), ("auto", 50_000),
@@ -100,6 +114,9 @@ def test_port_sources_import_no_jax_and_no_pmgt_tpu():
     for d, _, names in os.walk(os.path.join(ROOT, "pmgt_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    for new in ("cli/main.py", "cli/data_cmds.py", "train/engine.py",
+                "train/checkpoints.py", "train/registry.py"):
+        assert os.path.join(ROOT, "pmgt_tpu_torch", new) in files
     bad = [
         (os.path.relpath(p, ROOT), m)
         for p in files for m in _imported_modules(p)

@@ -368,7 +368,7 @@ def test_task_trains_on_cpu(art):
     gens = list(task.train_batches(0))
     assert [g.initial_seed() for _, g in gens] == [
         (3 * 7_919 + i) % 2**32 for i in range(1, len(gens) + 1)]
-    task.on_resume(0)
+    task.on_resume(0, 0)
     losses = task.train_epoch(0)
     steps = len(task.train_nodes) // 16
     assert losses.shape == (steps,) and bool(torch.isfinite(losses).all())
