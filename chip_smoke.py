@@ -7,14 +7,17 @@ the training path, and checks what comes out.
 Phases (any failure raises and the script exits non-zero):
 
 1. The card's name and power limit (``nvidia-smi``), then the kernel build
-   (one ``nvcc`` per source, all started together) and its time.
+   (one ``nvcc`` per source, all started together), its time, and each
+   kernel instance's registers, stack and spills from the ptxas report.
 2. K1, the seq-major dual-attention forward, against
    ``dual_attention_sm_reference`` at the serving shapes S=6, d=128,
    N=768 (eval: 256 targets + 512 pair lanes) and N=256 (export), in f32
    and bf16, with and without keep masks. Tolerance: max abs error
    <= 1e-5 in f32, <= 2e-2 of the output's max magnitude in bf16. Device
    times from CUDA-graph replay (mean over many launches, inputs warm in
-   L2), and CUDA-event times of back-to-back eager calls beside them.
+   L2: ``ms``; each launch after a 128 MB read that evicts the L2, the
+   read's own time taken away: ``cold_ms``), and CUDA-event times of
+   back-to-back eager calls beside them.
 3. The main path at full width: the default PMGT model (hidden 128, 5
    layers, feature widths 1536/768, hops 16/8/4, test batch 256) with
    random weights from seed 0, on the TG-shape synthetic dataset (10,834
@@ -29,12 +32,19 @@ Phases (any failure raises and the script exits non-zero):
 5. K2, the seq-major dual-attention backward, against
    ``dual_attention_sm_backward_reference`` at S=6, d=128, N=3072 (the
    training lanes: 256 targets + 2,560 pair lanes + 256 masked lanes) and
-   N=37 (ragged), f32, with and without keep masks, some keys masked in
-   every sequence and one zero context row. Tolerance: each of dq, dk, dv,
+   N=768, N=256 and N=37 (ragged), f32, with and without keep masks, some
+   keys masked in every sequence and one zero context row. Tolerance: each
+   of dq, dk, dv,
    dc within 1e-5 * max(1, max|ref|); dc of the sequences without the
    zero row is also held to 1e-5 * max(1, their max|ref|) (the zero row's
    dc is of order 1e12, the derivative of the clamped cosine). K1 is also
-   checked at N=3072. Device times from CUDA-graph replay.
+   checked at N=3072. Device times (warm and cold L2) from CUDA-graph
+   replay.
+5b. An untimed sweep of K1 (f32, bf16), K2, K3 (f32, bf16) and K4 against
+   their plain versions over N in {1, 37, 3071}, S in {1, 2, 8, 9, 32} and
+   d in {32, 96, 256}: ragged tiles, one-key rows, 32-lane key groups, the
+   largest tile (one stage). Some sequences have every key masked but one;
+   the keep masks cycle through none, bool and f32. Tolerances as above.
 6. The training path at full width, from the seed-0 weights on the kernel
    route: evaluate, one epoch of ``train_epoch`` (8,667 train nodes: 33
    steps of 256, dropout on, GSR + NFR, AdamW), evaluate again. Every loss
@@ -52,7 +62,7 @@ Phases (any failure raises and the script exits non-zero):
    3072 and 768 (h = 1, S = 6, d = 128) in f32 and, for K3, bf16, with and
    without keep masks; a ragged B·h = 37; h = 2, d = 64. Tolerances as K1
    and K2: 1e-5 * max(1, max|ref|) in f32 (each gradient), 2e-2 * max|out|
-   in bf16. Device times from CUDA-graph replay.
+   in bf16. Device times (warm and cold L2) from CUDA-graph replay.
 9. The two layouts on real tensors: q/k/v/c of the encoder's first layer on
    a 768-lane validation chunk; K1 seq-major against K3 on the same tensors
    as [B, h, S, d], K2 against K4, within 1e-6 * max(1, max|out|). Then the
@@ -174,6 +184,28 @@ def graph_ms(fn, iters: int = 50, reps: int = 5) -> float:
     return start.elapsed_time(end) / (reps * iters)
 
 
+_FLUSH = {}
+
+
+def cold_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Device time per call of ``fn()`` in ms with a cold L2: as
+    ``graph_ms``, but each call follows a read of a 128 MB buffer (more
+    than the 50 MB L2), and the time of the reads alone is taken away. A
+    read and not a write: a write would leave the L2 full of dirty lines
+    whose write-back the timed kernel would pay for."""
+    import torch
+
+    if not _FLUSH:
+        _FLUSH["buf"] = torch.ones(32 << 20, device="cuda")  # 128 MB
+        _FLUSH["out"] = torch.empty((), device="cuda")
+
+    def flush():
+        torch.sum(_FLUSH["buf"], dim=0, out=_FLUSH["out"])
+
+    both = graph_ms(lambda: (flush(), fn()), iters, reps)
+    return both - graph_ms(flush, iters, reps)
+
+
 def profile_phases(phases) -> dict:
     """One ``torch.profiler`` session over ``phases`` ((name, fn) pairs,
     each ending in a host sync). Per phase: the host wall time, the summed
@@ -280,6 +312,7 @@ def check_k1(s: int, n: int, d: int, dtype, keep_masks: bool) -> dict:
         # back-to-back eager calls is kept beside it (the host's issue
         # rate where the wrapper's Python costs more than the kernel).
         "ms": graph_ms(lambda: dual_attention_sm(*args)),
+        "cold_ms": cold_ms(lambda: dual_attention_sm(*args)),
         "plain_ms": graph_ms(lambda: dual_attention_sm_reference(*args)),
         "wrapper_events_ms": cuda_ms(lambda: dual_attention_sm(*args)),
         "plain_events_ms": cuda_ms(lambda: dual_attention_sm_reference(*args),
@@ -366,6 +399,7 @@ def check_k2(s: int, n: int, d: int, keep_masks: bool) -> dict:
         "tolerance": "each gradient max abs err <= 1e-5 * max(1, max|ref|)",
         "ok": all(oks),
         "ms": graph_ms(lambda: dual_attention_sm_backward(*args)),
+        "cold_ms": cold_ms(lambda: dual_attention_sm_backward(*args)),
         "plain_ms": graph_ms(lambda: dual_attention_sm_backward_reference(*args)),
     }
     row.update(k2_bound_ms(s, n, d, 4, 1 if keep_masks else 0))
@@ -446,6 +480,7 @@ def check_k3(b: int, h: int, d: int, dtype, keep_masks: bool, s: int = 6) -> dic
         "max_abs_err": err, "max_abs_out": scale, "limit": limit,
         "tolerance": tol, "ok": err <= limit,
         "ms": graph_ms(lambda: dual_attention_bm_forward(*args)),
+        "cold_ms": cold_ms(lambda: dual_attention_bm_forward(*args)),
         "plain_ms": graph_ms(lambda: dual_attention_bm_reference(*args)),
     }
     row.update(k1_bound_ms(s, n, d, q.element_size(), 1 if keep_masks else 0))
@@ -506,6 +541,7 @@ def check_k4(b: int, h: int, d: int, keep_masks: bool, s: int = 6) -> dict:
         "tolerance": "each gradient max abs err <= 1e-5 * max(1, max|ref|)",
         "ok": all(oks),
         "ms": graph_ms(lambda: dual_attention_bm_backward(*args)),
+        "cold_ms": cold_ms(lambda: dual_attention_bm_backward(*args)),
         "plain_ms": graph_ms(lambda: dual_attention_bm_backward_reference(*args)),
     }
     row.update(k2_bound_ms(s, n, d, 4, 1 if keep_masks else 0))
@@ -513,6 +549,127 @@ def check_k4(b: int, h: int, d: int, keep_masks: bool, s: int = 6) -> dict:
     if not row["ok"]:
         raise RuntimeError(f"K4 disagrees with its plain version: {row}")
     return row
+
+
+SWEEP_N = (1, 37, 3071)
+SWEEP_S = (1, 2, 8, 9, 32)
+SWEEP_D = (32, 96, 256)
+
+
+def sweep_edges() -> dict:
+    """Untimed: K1 (f32, bf16), K2, K3 (f32, bf16) and K4 against their
+    plain versions at every (N, S, d) of SWEEP_N x SWEEP_S x SWEEP_D:
+    ragged tiles, one-key rows, the 32-lane groups (S > 8), rows not a
+    multiple of 128 features. In every input some sequences have every key
+    masked but one; the keep masks cycle through none, bool and f32 (0/1
+    floats) from one shape to the next. Tolerances as the timed checks:
+    f32 1e-5 * max(1, max|ref|) per output, bf16 2e-2 * max|ref|. K3 and
+    K4 run on the batch-major copies of the seq-major inputs."""
+    import torch
+
+    from pmgt_tpu_torch.ops import dual_attention as da
+
+    worst, failures, count = {}, [], 0
+
+    def hold(label, got, ref, bf16=False):
+        nonlocal count
+        count += 1
+        scale = ref.abs().max().item()
+        limit = 2e-2 * scale if bf16 else 1e-5 * max(1.0, scale)
+        err = (got.float() - ref).abs().max().item()
+        ok = err <= limit and bool(torch.isfinite(got).all())
+        key = label.split("@")[0]
+        if err / limit > worst.get(key, {"err_over_limit": -1.0})["err_over_limit"]:
+            worst[key] = {"case": label, "max_abs_err": err, "limit": limit,
+                          "err_over_limit": err / limit}
+        if not ok:
+            failures.append({"case": label, "max_abs_err": err, "limit": limit})
+
+    bm = lambda x: None if x is None else x.transpose(0, 1).contiguous()  # noqa: E731
+    with torch.no_grad():
+        for idx, (n, s, d) in enumerate((n, s, d) for n in SWEEP_N
+                                        for s in SWEEP_S for d in SWEEP_D):
+            g = torch.Generator(device="cuda").manual_seed(1000 + idx)
+            q, k, v, c, go = (torch.randn(s, n, d, generator=g, device="cuda")
+                              for _ in range(5))
+            mask = torch.zeros(n, s, device="cuda")
+            n_ctx = torch.randint(0, s, (n,), generator=g, device="cuda")
+            n_ctx[0] = 0  # every key masked but the first
+            keys = torch.arange(s, device="cuda")
+            mask[keys[None, :] > n_ctx[:, None]] = torch.finfo(torch.float32).min
+            kind = ("none", "bool", "f32")[idx % 3]
+            m1 = m2 = None
+            if kind != "none":
+                m1, m2 = (torch.rand(s, n, s, generator=g, device="cuda") < 0.9
+                          for _ in range(2))
+                if kind == "f32":
+                    m1, m2 = m1.float(), m2.float()
+            hyper = (0.5, 0.9, kind != "none")
+            tag = f"@N={n},S={s},d={d},keep={kind}"
+            ref = da.dual_attention_sm_reference(q, k, v, c, mask, m1, m2, *hyper)
+            hold("k1_f32" + tag, da.dual_attention_sm_forward(
+                q, k, v, c, mask, m1, m2, *hyper), ref)
+            hold("k3_f32" + tag, da.dual_attention_bm_forward(
+                *map(bm, (q, k, v, c)), mask, bm(m1), bm(m2), *hyper),
+                bm(ref))
+            h = [x.bfloat16() for x in (q, k, v, c)]
+            ref16 = da.dual_attention_sm_reference(*(x.float() for x in h), mask,
+                                                   m1, m2, *hyper)
+            hold("k1_bf16" + tag, da.dual_attention_sm_forward(
+                *h, mask, m1, m2, *hyper), ref16, bf16=True)
+            hold("k3_bf16" + tag, da.dual_attention_bm_forward(
+                *map(bm, h), mask, bm(m1), bm(m2), *hyper), bm(ref16), bf16=True)
+            want = da.dual_attention_sm_backward_reference(
+                q, k, v, c, mask, m1, m2, go, *hyper)
+            got2 = da.dual_attention_sm_backward(q, k, v, c, mask, m1, m2, go, *hyper)
+            got4 = da.dual_attention_bm_backward(
+                *map(bm, (q, k, v, c)), mask, bm(m1), bm(m2), bm(go), *hyper)
+            for name, a, a4, b in zip(("dq", "dk", "dv", "dc"), got2, got4, want):
+                hold(f"k2_{name}" + tag, a, b)
+                hold(f"k4_{name}" + tag, a4, bm(b))
+            del q, k, v, c, go, ref, ref16, want, got2, got4, h
+    torch.cuda.synchronize()
+    row = {"phase": "edge_sweep", "N": SWEEP_N, "S": SWEEP_S, "d": SWEEP_D,
+           "comparisons": count, "worst": worst, "failures": failures[:20],
+           "ok": not failures}
+    emit(row)
+    if failures:
+        raise RuntimeError(f"edge sweep: {len(failures)} comparisons failed: {failures[:5]}")
+    return row
+
+
+def ptxas_report() -> list:
+    """Registers, stack and spills of every kernel instance, from the ptxas
+    report (``-Xptxas -v``) that the build keeps beside each library."""
+    import re
+
+    from pmgt_tpu_torch.ops import build
+
+    rows = []
+    for name in build.KERNELS:
+        with open(build.lib_path(name)[: -len(".so")] + ".log") as f:
+            text = f.read()
+        current = None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                t = re.search(r"kernelI(f|13__nv_bfloat16)Li(\d+)E", m.group(1))
+                current = {"kernel": name,
+                           "dtype": {"f": "float32"}.get(t.group(1), "bfloat16") if t else "?",
+                           "group_lanes": int(t.group(2)) if t else None}
+                rows.append(current)
+                continue
+            if current is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m:
+                current.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                current["registers"] = int(m.group(1))
+    return rows
 
 
 def capture_attention_inputs(task) -> dict:
@@ -1046,7 +1203,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     emit({"phase": "build", "kernels": list(build.KERNELS),
-          "seconds": time.perf_counter() - t0})
+          "seconds": time.perf_counter() - t0, "ptxas": ptxas_report()})
 
     # ---- 2. K1 against its plain version --------------------------------
     checks = [
@@ -1060,8 +1217,12 @@ def main() -> int:
     results["k1_checks"] = checks
 
     # ---- 5. K2 against its plain version --------------------------------
-    k2_checks = [check_k2(6, n, 128, km) for n in (3072, 37) for km in (False, True)]
+    k2_checks = [check_k2(6, n, 128, km) for n in (3072, 768, 256, 37)
+                 for km in (False, True)]
     results["k2_checks"] = k2_checks
+
+    # ---- 5b. untimed sweep of all four kernels over edge shapes ---------
+    results["edge_sweep"] = sweep_edges()
 
     # ---- 8. K3 and K4, the batch-major kernels, against their plain versions
     k3_checks = [
@@ -1191,6 +1352,8 @@ def main() -> int:
             "launches_by_path": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": row["ms"],
+            "cold_ms": row["cold_ms"],
+            "bound_share": row["bound_ms"] / row["cold_ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],

@@ -301,15 +301,32 @@ def _ptr(m):
     return None if m is None else m.data_ptr()
 
 
-def _entry(lib: str, name: str, n_out: int):
-    """The strided C entry ``name`` of kernel library ``lib``, typed: q, k,
-    v, c, mask, m1, m2, mask_kind, [g,] the outputs, S, N, d, dtype, four
-    strides, beta, 1 - beta, 1 / keep, 1 / √d, stream."""
+# The C entry points of the kernel libraries: name -> (library, pointers
+# after mask_kind: the output for the forward; g and the four gradients for
+# the backward).
+C_ENTRIES = {
+    "pmgt_dual_attention_fwd": ("dual_attention_fwd", 1),
+    "pmgt_dual_attention_bwd": ("dual_attention_bwd", 5),
+}
+
+
+def entry_argtypes(n_out: int) -> list:
+    """ctypes types of a strided C entry: q, k, v, c, mask, m1, m2,
+    mask_kind, ``n_out`` pointers, S, N, d, dtype, four strides, beta,
+    1 - beta, 1 / keep, 1 / √d, stream. A pointer typed as an int would be
+    cut to 32 bits without a word, so a CPU test holds this list against
+    the C declarations."""
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    return [p] * 7 + [i] + [p] * n_out + [i] * 4 + [ll] * 4 + [f] * 4 + [p]
+
+
+def _entry(name: str):
+    """The typed C entry ``name`` (see ``C_ENTRIES``), built at first use."""
+    lib, n_out = C_ENTRIES[name]
     fn = getattr(build.load(lib), name)
     if fn.argtypes is None:
-        p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        fn.argtypes = [p] * 7 + [i] + [p] * n_out + [i] * 4 + [ll] * 4 + [f] * 4 + [p]
-        fn.restype = i
+        fn.argtypes = entry_argtypes(n_out)
+        fn.restype = ctypes.c_int
     return fn
 
 
@@ -328,7 +345,7 @@ def _launch_forward(q, k, v, c, mask_bs, m1, m2, beta, keep, use_dropout,
         q, (k, v, c), mask_bs, m1, m2, use_dropout, batch_major
     )
     out = torch.empty_like(q)
-    fn = _entry("dual_attention_fwd", "pmgt_dual_attention_fwd", 1)
+    fn = _entry("pmgt_dual_attention_fwd")
     with torch.cuda.device(q.device):
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), c.data_ptr(),
@@ -349,7 +366,7 @@ def _launch_backward(q, k, v, c, mask_bs, m1, m2, g, beta, keep, use_dropout,
         q, (k, v, c, g), mask_bs, m1, m2, use_dropout, batch_major
     )
     grads = tuple(torch.empty_like(q) for _ in range(4))
-    fn = _entry("dual_attention_bwd", "pmgt_dual_attention_bwd", 5)
+    fn = _entry("pmgt_dual_attention_bwd")
     with torch.cuda.device(q.device):
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), c.data_ptr(),

@@ -36,7 +36,8 @@ def _inputs(seed, s, n, d, keep=0.9):
     c[0, 0] = 0.0  # a zero context row: the cosine divides by max(., 1e-12)
     mask = np.zeros((n, s), np.float32)
     mask[:, -1] = BIG_NEG  # last key masked everywhere
-    mask[1, 2:] = BIG_NEG  # a sequence with only its first two keys
+    if n > 1:
+        mask[1, 2:] = BIG_NEG  # a sequence with only its first two keys
     m1 = rs.random((s, n, s)) < keep
     m2 = rs.random((s, n, s)) < keep
     return q, k, v, c, mask, m1, m2
@@ -130,26 +131,35 @@ def test_plain_and_seq_major_routes_agree():
     np.testing.assert_allclose(bm[:, 0].permute(1, 0, 2).numpy(), sm, atol=ATOL)
 
 
+# (N, S, d) on the card: the serving shapes, then edges of the tiling (one
+# sequence, ragged tiles, 32-lane key groups for S > 8, d not a multiple
+# of 128, the largest S x d, where two stages do not fit in shared memory).
+GPU_SHAPES = [(768, 6, 128), (256, 6, 128), (1, 1, 32), (37, 9, 96),
+              (3071, 32, 256), (3071, 8, 32), (37, 2, 256), (1, 32, 96)]
+
+
 @pytest.mark.gpu
-def test_kernel_matches_plain_on_gpu():
-    """The CUDA kernel against the plain version at the serving shapes,
-    f32 and bf16, with and without keep masks (needs a card and nvcc)."""
+@pytest.mark.parametrize("n,s,d", GPU_SHAPES)
+def test_kernel_matches_plain_on_gpu(n, s, d):
+    """The CUDA kernel against the plain version, f32 and bf16, without
+    keep masks and with bool and f32 keep masks (needs a card and nvcc)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    for n in (768, 256):
-        args = _inputs(n, 6, n, 128)
-        for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-            for use_dropout in (False, True):
-                q, k, v, c = (torch.from_numpy(x).cuda().to(dt) for x in args[:4])
-                mask, m1, m2 = (torch.from_numpy(x).cuda() for x in args[4:])
-                out = dual_attention_sm(q, k, v, c, mask, m1, m2, 0.5, 0.9,
-                                        use_dropout)
-                torch.cuda.synchronize()
-                ref = dual_attention_sm_reference(
-                    q.float(), k.float(), v.float(), c.float(), mask, m1, m2,
-                    0.5, 0.9, use_dropout,
-                )
-                err = (out.float() - ref).abs().max().item()
-                if dt == torch.bfloat16:
-                    err /= ref.abs().max().item()
-                assert err <= tol, (n, dt, use_dropout, err)
+    args = _inputs(n, s, n, d)
+    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        for use_dropout, mdt in ((False, torch.bool), (True, torch.bool),
+                                 (True, torch.float32)):
+            q, k, v, c = (torch.from_numpy(x).cuda().to(dt) for x in args[:4])
+            mask = torch.from_numpy(args[4]).cuda()
+            m1, m2 = (torch.from_numpy(x).cuda().to(mdt) for x in args[5:])
+            out = dual_attention_sm(q, k, v, c, mask, m1, m2, 0.5, 0.9,
+                                    use_dropout)
+            torch.cuda.synchronize()
+            ref = dual_attention_sm_reference(
+                q.float(), k.float(), v.float(), c.float(), mask, m1, m2,
+                0.5, 0.9, use_dropout,
+            )
+            err = (out.float() - ref).abs().max().item()
+            if dt == torch.bfloat16:
+                err /= ref.abs().max().item()
+            assert err <= tol, (n, s, d, dt, use_dropout, mdt, err)

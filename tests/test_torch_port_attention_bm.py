@@ -229,12 +229,21 @@ def test_raw_bm_launchers_refuse_grad_and_count_only_kernels():
             dual_attention_bm_backward.launches) == before
 
 
+# (B, h, S, d) on the card: B·h = 3072 and a ragged 37 at h = 1, d = 128,
+# and h = 2, d = 64; then edges of the tiling (one sequence, 32-lane key
+# groups for S > 8, d not a multiple of 128, the largest S x d, where two
+# stages do not fit in shared memory).
+GPU_SHAPES = [(3072, 1, 6, 128), (37, 1, 6, 128), (300, 2, 6, 64),
+              (1, 1, 1, 32), (37, 1, 9, 96), (3071, 1, 32, 256),
+              (3071, 1, 8, 32), (37, 1, 2, 256), (1, 1, 32, 96)]
+
+
 @pytest.mark.gpu
-def test_k3_k4_match_plain_on_gpu():
-    """K3 and K4 against the plain batch-major versions at B·h = 3072 and a
-    ragged 37 (h = 1, d = 128) and at h = 2, d = 64, with and without keep
-    masks; and K3/K4 against K1/K2 on the same tensors permuted (needs a
-    card and nvcc)."""
+@pytest.mark.parametrize("b,h,s,d", GPU_SHAPES)
+def test_k3_k4_match_plain_on_gpu(b, h, s, d):
+    """K3 and K4 against the plain batch-major versions, without keep
+    masks and with bool and f32 keep masks; and K3/K4 against K1/K2 on the
+    same tensors permuted (needs a card and nvcc)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from pmgt_tpu_torch.ops.dual_attention import (
@@ -242,24 +251,27 @@ def test_k3_k4_match_plain_on_gpu():
         dual_attention_sm_forward,
     )
 
-    for b, h, d in ((3072, 1, 128), (37, 1, 128), (300, 2, 64)):
-        q, k, v, c, mask, m1, m2, g = _inputs(b, b, h, 6, d)
-        fq, fk, fv, fc, mask_bs, fg = (x.cuda() for x in _t(_folded(q, k, v, c, mask, g, h)))
-        m1, m2 = torch.from_numpy(m1).cuda(), torch.from_numpy(m2).cuda()
-        for use_dropout in (False, True):
-            args = (fq, fk, fv, fc, mask_bs, m1, m2)
-            out = dual_attention_bm_forward(*args, 0.5, KEEP, use_dropout)
-            grads = dual_attention_bm_backward(*args, fg, 0.5, KEEP, use_dropout)
-            torch.cuda.synchronize()
-            _assert_close([out.cpu()], [dual_attention_bm_reference(
-                *args, 0.5, KEEP, use_dropout).cpu()])
-            _assert_grads_close([x.cpu() for x in grads], [x.cpu() for x in
-                                dual_attention_bm_backward_reference(
-                                    *args, fg, 0.5, KEEP, use_dropout)], fc.cpu())
-            sm = lambda x: x.transpose(0, 1).contiguous()  # noqa: E731
-            sm_args = (*map(sm, (fq, fk, fv, fc)), mask_bs, sm(m1), sm(m2))
-            out_sm = dual_attention_sm_forward(*sm_args, 0.5, KEEP, use_dropout)
-            torch.testing.assert_close(out, sm(out_sm), rtol=0, atol=1e-6)
-            grads_sm = dual_attention_sm_backward(*sm_args, sm(fg), 0.5, KEEP, use_dropout)
-            for a, b_ in zip(grads, grads_sm):
-                torch.testing.assert_close(a, sm(b_), rtol=1e-6, atol=1e-6)
+    q, k, v, c, mask, m1, m2, g = _inputs(b, b, h, s, d)
+    fq, fk, fv, fc, mask_bs, fg = (x.cuda() for x in _t(_folded(q, k, v, c, mask, g, h)))
+    m1, m2 = torch.from_numpy(m1).cuda(), torch.from_numpy(m2).cuda()
+    for use_dropout, mdt in ((False, torch.bool), (True, torch.bool),
+                             (True, torch.float32)):
+        args = (fq, fk, fv, fc, mask_bs, m1.to(mdt), m2.to(mdt))
+        out = dual_attention_bm_forward(*args, 0.5, KEEP, use_dropout)
+        grads = dual_attention_bm_backward(*args, fg, 0.5, KEEP, use_dropout)
+        torch.cuda.synchronize()
+        _assert_close([out.cpu()], [dual_attention_bm_reference(
+            *args, 0.5, KEEP, use_dropout).cpu()])
+        want = [x.cpu() for x in dual_attention_bm_backward_reference(
+            *args, fg, 0.5, KEEP, use_dropout)]
+        if b * h > 1:
+            _assert_grads_close([x.cpu() for x in grads], want, fc.cpu())
+        else:  # the one sequence holds the zero context row
+            _assert_close([x.cpu() for x in grads], want)
+        sm = lambda x: x.transpose(0, 1).contiguous()  # noqa: E731
+        sm_args = (*map(sm, (fq, fk, fv, fc)), mask_bs, sm(m1), sm(m2))
+        out_sm = dual_attention_sm_forward(*sm_args, 0.5, KEEP, use_dropout)
+        torch.testing.assert_close(out, sm(out_sm), rtol=0, atol=1e-6)
+        grads_sm = dual_attention_sm_backward(*sm_args, sm(fg), 0.5, KEEP, use_dropout)
+        for a, b_ in zip(grads, grads_sm):
+            torch.testing.assert_close(a, sm(b_), rtol=1e-6, atol=1e-6)

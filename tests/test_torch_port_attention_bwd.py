@@ -174,20 +174,29 @@ def test_raw_launchers_refuse_grad():
     assert (dual_attention_sm.launches, dual_attention_sm_backward.launches) == before
 
 
+# (N, S, d) on the card: the training shape and a ragged N, then edges of
+# the tiling (one sequence, 32-lane key groups for S > 8, d not a multiple
+# of 128, the largest S x d, where two stages do not fit in shared memory).
+GPU_SHAPES = [(3072, 6, 128), (37, 6, 128), (1, 1, 32), (37, 9, 96),
+              (3071, 32, 256), (3071, 8, 32), (37, 2, 256), (1, 32, 96)]
+
+
 @pytest.mark.gpu
-def test_k2_matches_plain_on_gpu():
-    """K2 against the plain backward at the training shape N=3072 and at a
-    ragged N, with and without keep masks (needs a card and nvcc)."""
+@pytest.mark.parametrize("n,s,d", GPU_SHAPES)
+def test_k2_matches_plain_on_gpu(n, s, d):
+    """K2 against the plain backward, without keep masks and with bool and
+    f32 keep masks (needs a card and nvcc)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    for n in (3072, 37):
-        args = [x.cuda() for x in _t(_inputs(n, 6, n, 128))]
-        q, k, v, c, mask, m1, m2, g = args
-        for use_dropout in (False, True):
-            got = dual_attention_sm_backward(q, k, v, c, mask, m1, m2, g, 0.5,
-                                             KEEP, use_dropout)
-            torch.cuda.synchronize()
-            want = dual_attention_sm_backward_reference(
-                q, k, v, c, mask, m1, m2, g, 0.5, KEEP, use_dropout)
-            _assert_grads_close([x.cpu().numpy() for x in got],
-                                [x.cpu().numpy() for x in want])
+    args = [x.cuda() for x in _t(_inputs(n, s, n, d))]
+    q, k, v, c, mask, m1, m2, g = args
+    for use_dropout, mdt in ((False, torch.bool), (True, torch.bool),
+                             (True, torch.float32)):
+        m1, m2 = m1.to(mdt), m2.to(mdt)
+        got = dual_attention_sm_backward(q, k, v, c, mask, m1, m2, g, 0.5,
+                                         KEEP, use_dropout)
+        torch.cuda.synchronize()
+        want = dual_attention_sm_backward_reference(
+            q, k, v, c, mask, m1, m2, g, 0.5, KEEP, use_dropout)
+        _assert_grads_close([x.cpu().numpy() for x in got],
+                            [x.cpu().numpy() for x in want])

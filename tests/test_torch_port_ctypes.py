@@ -1,0 +1,62 @@
+"""The ctypes signatures of the kernel libraries' C entries, held against
+their ``extern "C"`` declarations in ``pmgt_tpu_torch/ops/csrc/*.cu``.
+
+ctypes checks nothing: a pointer typed as ``c_int`` is cut to 32 bits and
+a ``long long`` typed as ``c_int`` shifts every later argument, silently.
+So the declarations are parsed here (no compiler needed) and each
+parameter's kind is compared with ``entry_argtypes``.
+"""
+import ctypes
+import glob
+import os
+import re
+
+import pytest
+
+from pmgt_tpu_torch.ops import build
+from pmgt_tpu_torch.ops.dual_attention import C_ENTRIES, entry_argtypes
+
+
+def _extern_c_declarations() -> dict:
+    """{name: [parameter declarations]} of every function defined inside an
+    ``extern "C" { ... }`` block of the kernel sources."""
+    found = {}
+    for path in sorted(glob.glob(os.path.join(build.CSRC, "*.cu"))):
+        with open(path) as f:
+            text = re.sub(r"//[^\n]*", "", f.read())
+        for block in re.findall(r'extern\s+"C"\s*\{(.*)\}', text, re.S):
+            for name, params in re.findall(
+                r"\b(?:int|void)\s+(\w+)\s*\(([^)]*)\)\s*\{", block
+            ):
+                found[name] = [p.strip() for p in params.split(",")]
+    return found
+
+
+def _ctype_of(param: str):
+    """The ctypes type a C parameter declaration calls for."""
+    if "*" in param:
+        return ctypes.c_void_p
+    words = param.replace("const", "").split()[:-1]  # drop the name
+    kinds = {("int",): ctypes.c_int, ("long", "long"): ctypes.c_longlong,
+             ("float",): ctypes.c_float}
+    return kinds[tuple(words)]
+
+
+def test_every_c_entry_has_a_signature():
+    """The wrappers type every C entry the sources define, and no other."""
+    assert set(_extern_c_declarations()) == set(C_ENTRIES)
+    for lib, _ in C_ENTRIES.values():
+        assert lib in build.KERNELS
+
+
+@pytest.mark.parametrize("name", sorted(C_ENTRIES))
+def test_c_entry_matches_ctypes_argtypes(name):
+    """Parameter count and kind of each C entry equal its ctypes argtypes:
+    pointer -> c_void_p, int -> c_int, long long -> c_longlong, float ->
+    c_float."""
+    params = _extern_c_declarations()[name]
+    want = [_ctype_of(p) for p in params]
+    got = entry_argtypes(C_ENTRIES[name][1])
+    assert len(got) == len(want), (name, len(got), len(want))
+    for i, (p, g, w) in enumerate(zip(params, got, want)):
+        assert g is w, (name, i, p, g, w)
