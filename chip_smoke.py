@@ -79,10 +79,44 @@ Phases (any failure raises and the script exits non-zero):
     Launches per invocation: K2 5 per step, K1 as many plus 5 per
     evaluation chunk. Checkpoint save, resume and export times.
 
+11. K1 at the downstream lanes, f32 without keep masks (checked with
+    phase 2): N=4,000 (a PMGT_NCF evaluation chunk: 4 users × 1,000
+    candidates) and N=65,536 (a serving tile: 64 users × 1,024 items); K2
+    at N=256 (a PMGT_NCF training step) is among phase 5's shapes.
+12. NCF NeuMF-end at the default width (factor 32, 3 layers: the MLP item
+    table is 128 wide) on the whole TG-shape data (134,697 users), its MLP
+    item table the port's own PMGT export from phase 10: 1 epoch,
+    validation n20/r20, test, and the top 100 of every user served. Served
+    ids are items or -1 (only on -inf slots), and no training positive is
+    served.
+13. PMGT_NCF NeuMF-end (the default PMGT encoder inside NCF) on the
+    TG-shape graph and feature tables with the interactions of the first
+    1,024 users only: 1 epoch (every step's loss finite; the mean BCE over
+    all of the epoch's examples, dropout off, lower after the epoch than
+    before), evaluate, serve
+    the top 100 of every user; K1 == K2 == 5 a training step, K1 == 5 an
+    evaluation chunk and a serving tile, counts zeroed just before and
+    read just after each. The same evaluation and serving on the plain
+    attention route from the same weights and contexts: n20 and r20
+    equal, loss within 1e-5, served scores within 1e-5 and every id the
+    two routes serve differently a near-tie (the plain route's id scores,
+    on the kernel route, within 1e-5 of the kernel route's at that slot).
+    3 training steps on each route: step-1 gradients within 1e-4·max|g|
+    (+1e-8), losses within 1e-4 relative.
+14. DCN (factor 16, so its 128-wide item table takes the PMGT export) on
+    the same cut: 1 epoch, validation and test AUC finite.
+15. ``train-ncf`` (NeuMF-end with the PMGT export) and ``train-pmgt-ncf``
+    through the port's CLI on the cut written with ``save_native``: 1 epoch
+    each, then ``--mode eval`` and ``--mode inference``; every run
+    FINISHED, eval reproducing the training run's test metrics within
+    1e-6, exact K1/K2 counts for PMGT_NCF and none for NCF.
+
 After the serving and training runs, one pass under ``torch.profiler``
 (one evaluate and one export; one training step) gives the device's busy
 time (summed kernel time) against the host wall time, and K1's and K2's
-parts of it. The later phases open no profiler session.
+parts of it; phase 7 profiles a step of each route in one session, and
+one last session profiles a training step, an evaluation and one serving
+user batch of NCF and of PMGT_NCF (five sessions in all).
 
 Float32 matmuls run in full f32 (TF32 off) on both paths. Detailed
 results also go to ``outputs/chip_smoke.json``. The last line of
@@ -90,6 +124,7 @@ standard output is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -1125,7 +1160,7 @@ def compare_training_routes(make_task) -> dict:
     plain.model.load_state_dict(kern.model.state_dict())
     kern.on_epoch_start(0)
     plain._train_ctx, plain._train_ctx_tag = kern._train_ctx, kern._train_ctx_tag
-    launches, losses, grads, busy = {}, {}, {}, {}
+    launches, losses, grads, fourth = {}, {}, {}, {}
     for name, task in (("kernel", kern), ("plain", plain)):
         zero_launches()
         batches = list(task.train_batches(0))[:4]
@@ -1141,8 +1176,12 @@ def compare_training_routes(make_task) -> dict:
         torch.cuda.synchronize()
         launches[name] = (dual_attention_sm.launches,
                           dual_attention_sm_backward.launches)
-        busy[name] = profile_phases((("train_step", lambda: (
-            task.train_step(batches[3]), torch.cuda.synchronize())),))
+        fourth[name] = (task, batches[3])
+    # one profiler session for both routes' fourth step
+    busy = profile_phases(tuple(
+        (name, lambda t=t, b=b: (t.train_step(b), torch.cuda.synchronize()))
+        for name, (t, b) in fourth.items()))
+    busy = {name: {"train_step": busy[name]} if busy else {} for name in fourth}
     worst_grad, worst_excess = 0.0, 0.0
     for n, gk in grads["kernel"].items():
         gp = grads["plain"][n]
@@ -1171,6 +1210,418 @@ def compare_training_routes(make_task) -> dict:
     if not ok:
         raise RuntimeError("kernel route and plain route train differently")
     return row
+
+
+# ---- the downstream recommenders -------------------------------------------
+
+PMGT_NCF_USERS = 1024  # interactions of the first 1,024 users (PMGT_NCF, DCN, CLI)
+
+
+def cut_users(art, n_users: int):
+    """The artifacts with only the interactions of users [0, n_users) (the
+    graph and feature tables whole)."""
+    from pmgt_tpu_torch.data.artifacts import DatasetArtifacts
+
+    def keep(p):
+        return p[p[:, 0] < n_users]
+
+    return DatasetArtifacts(
+        graph=art.graph, feat_init_embs=art.feat_init_embs,
+        train_pairs=keep(art.train_pairs), test_pairs=keep(art.test_pairs),
+        num_users=n_users, num_items=art.num_items,
+        item_classes=art.item_classes, node_classes=art.node_classes)
+
+
+def downstream_task(module: str, art, model_name: str, **extra):
+    """A downstream task of ``pmgt_tpu_torch.tasks.<module>`` on the card
+    through the workload contract's ``init_dataloader`` / ``init_model``,
+    seed 0, 1 epoch, the commands' defaults for everything not in
+    ``extra``."""
+    import importlib
+
+    from pmgt_tpu_torch.core.config import TrainArgs
+
+    trainer = importlib.import_module(f"pmgt_tpu_torch.tasks.{module}")
+    crit = "auc" if module == "dcn_task" else "n20"
+    args = TrainArgs(seed=0, model_name=model_name, num_epochs=1, early_criterion=crit,
+                     extra=dict(extra))
+    ctx = {"artifacts": art, "device": "cuda"}
+    trainer.check_args(args)
+    trainer.init_dataloader(args, ctx)
+    trainer.init_model(args, ctx)
+    return ctx["task"]
+
+
+def timed(fn):
+    """(fn(), ms) with the card synchronised before the stop."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def serve_checks(task, out: dict) -> dict:
+    """Every served id is an item or -1 (only on a -inf slot), and no
+    training positive is served."""
+    data = task.train_data
+    ids, scores = out["item_ids"], out["scores"]
+    in_range = bool(((ids >= 0) & (ids < data.num_items) | (ids == -1)).all())
+    minus_one_on_inf = bool(((ids == -1) == np.isneginf(scores)).all())
+    pairs = data.pairs.astype(np.int64)
+    train_keys = pairs[:, 0] * data.num_items + pairs[:, 1]
+    served = out["user_ids"].astype(np.int64)[:, None] * data.num_items + ids
+    leaked = int(np.isin(served[ids >= 0], train_keys).sum())
+    return {"ids_in_range_or_minus_one": in_range, "minus_one_only_on_minus_inf": minus_one_on_inf,
+            "training_positives_served": leaked,
+            "ok": in_range and minus_one_on_inf and leaked == 0}
+
+
+def epoch_losses(losses: np.ndarray) -> dict:
+    """The epoch's step count, whether every loss is finite, and the means
+    of its first and last thirds."""
+    third = max(len(losses) // 3, 1)
+    return {"steps": len(losses), "finite": len(losses) > 0 and bool(np.isfinite(losses).all()),
+            "loss_first_third": float(losses[:third].mean()),
+            "loss_last_third": float(losses[-third:].mean())}
+
+
+def pmgt_ncf_train_set_loss(task, epoch: int) -> float:
+    """Mean BCE of PMGT_NCF over all of the epoch's training examples on
+    the epoch's contexts, dropout off: the same examples before and after
+    the epoch, so the difference is what the steps learned (a step's loss
+    on its own batch moves by more than one epoch of learning)."""
+    import torch
+
+    from pmgt_tpu_torch.models.pmgt import bce_with_logits
+
+    task.on_epoch_start(epoch)
+    users, items, labels = task._epoch_arrays
+    total = 0.0
+    with torch.no_grad():
+        for s in range(0, len(users), 4096):
+            u, i, lab = users[s:s + 4096], items[s:s + 4096], labels[s:s + 4096]
+            seqs, mask = task._sequences(i, task._train_ctx)
+            logits = task.model(task.feat_tables, u, seqs, mask, item=i, deterministic=True)
+            total += bce_with_logits(logits, lab).sum().item()
+    return total / len(users)
+
+
+def run_ncf(art, emb_path: str) -> dict:
+    """NCF NeuMF-end at the default width (factor 32, 3 layers: the MLP
+    item table is 128 wide) on the whole TG-shape data, its MLP item table
+    the port's own PMGT export: 1 epoch, validation n20/r20, test, and the
+    top 100 of every user served. Returns the row and the closures of its
+    profiled pass."""
+    import torch
+
+    from pmgt_tpu_torch.data.artifacts import load_node_init_emb
+
+    task, build_ms = timed(lambda: downstream_task(
+        "ncf_task", art, "NeuMF-end", item_init_emb_path=emb_path))
+    emb = load_node_init_emb(art.item_classes, art.node_classes, np.load(emb_path))
+    injected = bool(np.array_equal(task.model.embed_item_MLP.weight.detach().cpu().numpy(), emb))
+    _, draw_ms = timed(lambda: task.on_epoch_start(0))
+    losses, epoch_ms = timed(lambda: task.train_epoch(0))
+    losses = losses.cpu().numpy()
+    val, first_eval_ms = timed(lambda: task.evaluate("valid"))  # draws the candidates
+    val2, eval_ms = timed(lambda: task.evaluate("valid"))
+    test, first_test_ms = timed(lambda: task.evaluate("test"))
+    out, serve_ms = timed(lambda: task.export_topk(k=100))
+    served = serve_checks(task, out)
+    loss_row = epoch_losses(losses)
+    metrics_ok = bool(np.isfinite([*val.values(), *test.values()]).all())
+    row = {
+        "phase": "ncf", "data": "TG-shape, all 134,697 users", "model": "NeuMF-end",
+        "factor_num": 32, "num_layers": 3,
+        "item_table": list(task.model.embed_item_MLP.weight.shape),
+        "train_pairs": len(task.train_data.pairs), "valid_users": len(task.valid_data.unique_users),
+        "test_users": len(task.test_data.unique_users),
+        "pmgt_export_injected": injected, "build_ms": build_ms, "epoch_draw_ms": draw_ms,
+        "epoch_ms": epoch_ms, "mean_step_ms": epoch_ms / max(len(losses), 1), **loss_row,
+        "valid": val, "valid_repeat_max_diff": max(abs(val[k] - val2[k]) for k in val),
+        "evaluate_first_ms": first_eval_ms, "evaluate_ms": eval_ms,
+        "test": test, "test_first_ms": first_test_ms,
+        "serve_users": len(out["user_ids"]), "serve_ms": serve_ms, "served": served,
+        "ok": injected and loss_row["finite"] and metrics_ok and served["ok"]
+        and max(abs(val[k] - val2[k]) for k in val) <= 1e-6,
+    }
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"NCF failed: {row}")
+    batch = next(task.train_batches(1))
+    score = task.scorer()
+    users = torch.arange(256, device="cuda")
+    pos = torch.as_tensor(task.positives()[:256], dtype=torch.int64, device="cuda")
+    profiled = (
+        ("ncf_train_step", lambda: (task.train_step(batch), torch.cuda.synchronize())),
+        ("ncf_evaluate", lambda: task.evaluate("valid")),
+        ("ncf_serving_user_batch", lambda: (task.serve_users(score, users, pos, 100, 8192),
+                                            torch.cuda.synchronize())),
+    )
+    return {"row": row, "profiled": profiled}
+
+
+def rescore(task, users: np.ndarray, items: np.ndarray) -> np.ndarray:
+    """Deterministic scores of (user, item) pairs on ``task``'s route."""
+    import torch
+
+    with torch.no_grad():
+        score = task.scorer()
+        return score(torch.as_tensor(users, dtype=torch.int64, device="cuda"),
+                     torch.as_tensor(items, dtype=torch.int64, device="cuda")).cpu().numpy()
+
+
+def run_pmgt_ncf(art_cut) -> dict:
+    """PMGT_NCF (NeuMF-end, the default PMGT encoder: hidden 128, 5 layers,
+    1 head, β 0.5, hops 16/8/4, dropout 0.1; factor 32, 3 layers) on the
+    TG-shape graph and feature tables with the first 1,024 users'
+    interactions: 1 epoch (K1 == K2 == 5 a step), evaluate (K1 == 5 a
+    chunk of 4 users × 1,000 candidates) and serve the top 100 of every
+    user (K1 == 5 a tile of 64 users × 1,024 items); then the same
+    evaluation and serving on the plain attention route from the same
+    weights and contexts, and 3 training steps on each route."""
+    import torch
+
+    from pmgt_tpu_torch.tasks.pmgt_ncf_task import PMGTNCFTask
+
+    task, build_ms = timed(lambda: downstream_task("pmgt_ncf_task", art_cut, "NeuMF-end"))
+    layers = task.config.num_hidden_layers
+    _, draw_ms = timed(lambda: task.on_epoch_start(0))
+    before = pmgt_ncf_train_set_loss(task, 0)
+    zero_launches()
+    losses, epoch_ms = timed(lambda: task.train_epoch(0))
+    train_launches = read_launches()
+    losses = losses.cpu().numpy()
+    after = pmgt_ncf_train_set_loss(task, 0)
+    loss_row = {**epoch_losses(losses), "train_set_loss_before": before,
+                "train_set_loss_after": after}
+    loss_row["ok"] = loss_row["finite"] and after < before
+    steps = len(losses)
+
+    _, eval_draw_ms = timed(task.eval_ctx)
+    task.evaluate("valid")  # draws the candidates; not counted
+    zero_launches()
+    val, eval_ms = timed(lambda: task.evaluate("valid"))
+    eval_launches = read_launches()
+    n_valid = len(task.valid_data.unique_users)
+    chunks = math.ceil(n_valid / task.eval_chunk_users)
+    lanes = task.eval_chunk_users * task._eval_cache["valid"][1][1].shape[2]
+    zero_launches()
+    out, serve_ms = timed(lambda: task.export_topk(k=100, user_batch=64, item_chunk=1024))
+    serve_launches = read_launches()
+    tiles = math.ceil(art_cut.num_users / 64) * math.ceil(art_cut.num_items / 1024)
+    served = serve_checks(task, out)
+
+    # the plain route on the same weights, contexts and candidates
+    def on_route(impl):
+        args = dataclasses.replace(task.args, extra={**task.args.extra, "attention_impl": impl})
+        return PMGTNCFTask(args, art_cut, task.train_data, task.valid_data, task.test_data,
+                           device="cuda")
+
+    plain = on_route("xla")
+    plain.model.load_state_dict(task.model.state_dict())
+    plain._eval_ctx = task._eval_ctx
+    plain._eval_cache = task._eval_cache
+    zero_launches()
+    val_p, eval_plain_ms = timed(lambda: plain.evaluate("valid"))
+    out_p, serve_plain_ms = timed(lambda: plain.export_topk(k=100, user_batch=64, item_chunk=1024))
+    plain_launches = read_launches()
+    ids, ids_p = out["item_ids"], out_p["item_ids"]
+    diff = ids != ids_p
+    users_d, slots_d = np.nonzero(diff)
+    # a plain-route id at a slot where the kernel route served another must
+    # score, on the kernel route, within 1e-5 of the kernel route's score
+    # there: the two routes swapped near-equal items only
+    tie_gap = 0.0
+    if len(users_d):
+        alt = rescore(task, users_d, ids_p[users_d, slots_d])
+        tie_gap = float(np.abs(alt - out["scores"][users_d, slots_d]).max())
+    score_diff = float(np.abs(out["scores"] - out_p["scores"]).max())
+    route = {
+        "n20_equal": val["val/n20"] == val_p["val/n20"],
+        "r20_equal": val["val/r20"] == val_p["val/r20"],
+        "loss_diff": abs(val["val/loss"] - val_p["val/loss"]),
+        "served_score_max_abs_diff": score_diff,
+        "served_slots_differing": int(diff.sum()),
+        "served_swaps_max_score_gap": tie_gap,
+        "plain_launches": plain_launches,
+    }
+    route["ok"] = (route["n20_equal"] and route["r20_equal"] and route["loss_diff"] <= 1e-5
+                   and score_diff <= 1e-5 and tie_gap <= 1e-5
+                   and plain_launches == {"k1": 0, "k2": 0, "k3": 0, "k4": 0})
+
+    # 3 training steps on each route from the same weights and draws
+    fresh = {impl: on_route(impl) for impl in ("pallas", "xla")}
+    fresh["xla"].model.load_state_dict(fresh["pallas"].model.state_dict())
+    grads, step_losses, step_launches = {}, {}, {}
+    for impl, t in fresh.items():
+        zero_launches()
+        ls = []
+        for i, batch in zip(range(3), t.train_batches(0)):
+            ls.append(t.accumulate_gradients(batch))
+            if i == 0:
+                grads[impl] = {n: p.grad.detach().clone() for n, p in t.model.named_parameters()
+                               if p.grad is not None}
+            t.optimizer.step()
+        step_losses[impl] = torch.stack(ls).cpu().numpy()
+        step_launches[impl] = read_launches()
+    worst = 0.0
+    for n, gk in grads["pallas"].items():
+        gp = grads["xla"][n]
+        worst = max(worst, (gk - gp).abs().max().item() / (1e-4 * gp.abs().max().item() + 1e-8))
+    loss_rel = float(np.max(np.abs(step_losses["pallas"] - step_losses["xla"])
+                            / np.abs(step_losses["xla"])))
+    train_route = {"losses_kernel": step_losses["pallas"].tolist(),
+                   "losses_plain": step_losses["xla"].tolist(), "loss_max_rel_diff": loss_rel,
+                   "step1_grad_err_over_limit": worst, "launches": step_launches,
+                   "ok": worst <= 1.0 and loss_rel <= 1e-4
+                   and step_launches["pallas"]["k1"] == step_launches["pallas"]["k2"] == 3 * layers
+                   and step_launches["xla"] == {"k1": 0, "k2": 0, "k3": 0, "k4": 0}}
+
+    want = {"train": {"k1": layers * steps, "k2": layers * steps, "k3": 0, "k4": 0},
+            "evaluate": {"k1": layers * chunks, "k2": 0, "k3": 0, "k4": 0},
+            "serve": {"k1": layers * tiles, "k2": 0, "k3": 0, "k4": 0}}
+    launches = {"train": train_launches, "evaluate": eval_launches, "serve": serve_launches}
+    metrics_ok = bool(np.isfinite(list(val.values())).all())
+    row = {
+        "phase": "pmgt_ncf", "data": f"TG-shape graph and features, interactions of the first "
+        f"{PMGT_NCF_USERS} users", "model": "NeuMF-end",
+        "train_pairs": len(task.train_data.pairs), "valid_users": n_valid,
+        "build_ms": build_ms, "epoch_draw_ms": draw_ms, "epoch_ms": epoch_ms,
+        "mean_step_ms": epoch_ms / max(steps, 1), "lanes_per_step": task.args.train_batch_size,
+        **loss_row, "losses": losses.tolist(),
+        "eval_ctx_draw_ms": eval_draw_ms, "valid": val, "evaluate_ms": eval_ms,
+        "eval_chunks": chunks, "eval_lanes_per_chunk": lanes,
+        "evaluate_plain_ms": eval_plain_ms, "valid_plain": val_p,
+        "serve_tiles": tiles, "serve_lanes_per_tile": 64 * 1024, "serve_ms": serve_ms,
+        "serve_plain_ms": serve_plain_ms, "served": served,
+        "launches": launches, "expected_launches": want,
+        "route_check": route, "train_route_check": train_route,
+        "ok": loss_row["ok"] and metrics_ok and served["ok"] and launches == want
+        and route["ok"] and train_route["ok"],
+    }
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"PMGT_NCF failed: {row}")
+    batch = next(task.train_batches(1))
+    score = task.scorer()
+    users = torch.arange(64, device="cuda")
+    pos = torch.as_tensor(task.positives()[:64], dtype=torch.int64, device="cuda")
+    profiled = (
+        ("pmgt_ncf_train_step", lambda: (task.train_step(batch), torch.cuda.synchronize())),
+        ("pmgt_ncf_evaluate", lambda: task.evaluate("valid")),
+        ("pmgt_ncf_serving_user_batch", lambda: (task.serve_users(score, users, pos, 100, 1024),
+                                                 torch.cuda.synchronize())),
+    )
+    return {"row": row, "profiled": profiled}
+
+
+def run_dcn(art_cut, emb_path: str) -> dict:
+    """DCN (its defaults with factor 16, so the item table is 16·2³ = 128
+    wide and takes the PMGT export) on the first 1,024 users'
+    interactions: 1 epoch, validation and test AUC finite."""
+    task, build_ms = timed(lambda: downstream_task(
+        "dcn_task", art_cut, "DCN", factor_num=16, item_init_emb_path=emb_path))
+    losses, epoch_ms = timed(lambda: task.train_epoch(0))
+    losses = losses.cpu().numpy()
+    val, eval_ms = timed(lambda: task.evaluate("valid"))
+    test = task.evaluate("test")
+    ok = bool(np.isfinite(losses).all() and np.isfinite(list(val.values())).all()
+              and np.isfinite(list(test.values())).all()) and len(losses) > 0
+    row = {"phase": "dcn", "data": f"interactions of the first {PMGT_NCF_USERS} users",
+           "factor_num": 16, "item_table": list(task.model.item_embeddings.weight.shape),
+           "build_ms": build_ms, "steps": len(losses), "epoch_ms": epoch_ms,
+           "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+           "valid": val, "test": test, "evaluate_ms": eval_ms, "ok": ok}
+    emit(row)
+    if not ok:
+        raise RuntimeError(f"DCN failed: {row}")
+    return row
+
+
+def run_downstream_cli(art_cut, data_root: str, emb_path: str) -> dict:
+    """``train-ncf`` (NeuMF-end with the PMGT export) and ``train-pmgt-ncf``
+    (NeuMF-end) through the port's ``main()`` on the first 1,024 users'
+    interactions written with ``save_native``: 1 epoch each, then ``--mode
+    eval`` and ``--mode inference``. Counts zeroed just before and read
+    just after each invocation; PMGT_NCF's are exact."""
+    import shutil
+
+    import torch
+
+    from pmgt_tpu_torch.cli.main import main as cli_main
+    from pmgt_tpu_torch.data.artifacts import save_native
+    from pmgt_tpu_torch.tasks.interaction_base import split_interactions
+    from pmgt_tpu_torch.core.config import TrainArgs
+    from pmgt_tpu_torch.train.registry import RunRegistry
+
+    shutil.rmtree(data_root, ignore_errors=True)
+    data_dir = os.path.join(data_root, "data")
+    save_native(os.path.join(data_dir, "TGcut"), art_cut)
+    invocations, outs = {}, {}
+    for cmd, model, extra in (
+        ("train-ncf", "NeuMF-end", ["--item-init-emb-path", emb_path]),
+        ("train-pmgt-ncf", "NeuMF-end", []),
+    ):
+        log_dir = os.path.join(data_root, f"logs_{cmd}")
+        base = ["--device", "cuda", cmd, "--model-name", model, "--dataset-name", "TGcut",
+                "--data-dir", data_dir, "--log-dir", log_dir, "--early-criterion", "n20",
+                "--seed", "0", *extra]
+        npz = os.path.join(data_root, f"{cmd}_top.npz")
+        for mode, more in (("train", ["--num-epochs", "1"]), ("eval", ["--mode", "eval"]),
+                           ("inference", ["--mode", "inference", "--inference-result-path", npz])):
+            if mode != "train":
+                (run,) = RunRegistry(log_dir).list_runs()
+                more = [*more, "--run-id", run.run_id]
+            torch.cuda.synchronize()
+            zero_launches()
+            t = time.perf_counter()
+            outs[(cmd, mode)] = cli_main([*base, *more])
+            torch.cuda.synchronize()
+            (run,) = RunRegistry(log_dir).list_runs()
+            invocations[f"{cmd} {mode}"] = {"wall_s": time.perf_counter() - t,
+                                            "launches": read_launches(), "status": run.status}
+    data = split_interactions(TrainArgs(seed=0), art_cut)
+    steps = len(data["train_data"].pairs) * 2 // 256
+    chunk = lambda d: math.ceil(len(d.unique_users) / 4)  # noqa: E731
+    tiles = math.ceil(art_cut.num_users / 64) * math.ceil(art_cut.num_items / 1024)
+    want = {
+        "train-pmgt-ncf train": {"k1": 5 * (steps + chunk(data["valid_data"])
+                                           + chunk(data["test_data"])), "k2": 5 * steps},
+        "train-pmgt-ncf eval": {"k1": 5 * chunk(data["test_data"]), "k2": 0},
+        "train-pmgt-ncf inference": {"k1": 5 * tiles, "k2": 0},
+    }
+    npz_ok = {}
+    for cmd in ("train-ncf", "train-pmgt-ncf"):
+        z = np.load(os.path.join(data_root, f"{cmd}_top.npz"))
+        npz_ok[cmd] = (z["item_ids"].shape == (art_cut.num_users, 100)
+                       and bool(np.isfinite(z["scores"][z["item_ids"] >= 0]).all()))
+    checks = {
+        "statuses_finished": all(v["status"] == "FINISHED" for v in invocations.values()),
+        "metrics_finite": all(np.isfinite(list(outs[(c, m)].values())).all()
+                              for c in ("train-ncf", "train-pmgt-ncf") for m in ("train", "eval")),
+        "eval_reproduces_train_test": all(
+            abs(outs[(c, "train")][k] - outs[(c, "eval")][k]) <= 1e-6
+            for c in ("train-ncf", "train-pmgt-ncf") for k in outs[(c, "train")]),
+        "npz": all(npz_ok.values()),
+        "pmgt_ncf_launches": all(
+            invocations[k]["launches"] == {**w, "k3": 0, "k4": 0} for k, w in want.items()),
+        "ncf_launches_none": all(invocations[f"train-ncf {m}"]["launches"]
+                                 == {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
+                                 for m in ("train", "eval", "inference")),
+    }
+    row = {"phase": "downstream_cli", "invocations": invocations, "expected_launches": want,
+           "test_metrics": {f"{c} {m}": outs[(c, m)] for c in ("train-ncf", "train-pmgt-ncf")
+                            for m in ("train", "eval")},
+           "checks": checks, "ok": all(checks.values())}
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"downstream CLI failed: {checks}")
+    return row
+
 
 
 def main() -> int:
@@ -1214,9 +1665,12 @@ def main() -> int:
     ]
     # K1 at the training lanes (256 targets + 2,560 pairs + 256 masked)
     checks += [check_k1(6, 3072, 128, torch.float32, km) for km in (False, True)]
+    # K1 at PMGT_NCF's lanes: an evaluation chunk (4 users x 1,000
+    # candidates) and a serving tile (64 users x 1,024 items), no dropout
+    checks += [check_k1(6, n, 128, torch.float32, False) for n in (4000, 65536)]
     results["k1_checks"] = checks
 
-    # ---- 5. K2 against its plain version --------------------------------
+    # ---- 5. K2 against its plain version (N=256: PMGT_NCF's training step)
     k2_checks = [check_k2(6, n, 128, km) for n in (3072, 768, 256, 37)
                  for km in (False, True)]
     results["k2_checks"] = k2_checks
@@ -1318,6 +1772,20 @@ def main() -> int:
     # ---- 10. train-pmgt end to end through the CLI ----------------------
     cli = run_cli(art, os.path.join(HERE, "outputs", "chip_smoke_cli"), smi)
 
+    # ---- 11-15. the downstream recommenders --------------------------------
+    emb_path = os.path.join(HERE, "outputs", "chip_smoke_cli", "emb.npy")  # phase 10's export
+    ncf = run_ncf(art, emb_path)
+    art_cut = cut_users(art, PMGT_NCF_USERS)
+    pncf = run_pmgt_ncf(art_cut)
+    dcn = run_dcn(art_cut, emb_path)
+    down_cli = run_downstream_cli(art_cut, os.path.join(HERE, "outputs", "chip_smoke_downstream"),
+                                  emb_path)
+    # where the time goes: one profiled pass of each downstream path, in
+    # one profiler session (not counted)
+    down_busy = profile_phases(ncf["profiled"] + pncf["profiled"])
+    emit({"phase": "downstream_profile",
+          "profiled": down_busy or "not measured: the profiler saw no device kernel"})
+
     # ---- summary ---------------------------------------------------------
     # Each kernel at its main path's shape (K1/K2 the training lanes, K3/K4
     # the public op at 3,072 lanes) with keep masks (dropout on); launches
@@ -1328,15 +1796,26 @@ def main() -> int:
 
     cli_launches = {k: sum(v["launches"][k] for v in cli["invocations"].values())
                     for k in ("k1", "k2")}
+    pncf_launches = pncf["row"]["launches"]
+    pncf_cli = {k: sum(v["launches"][k] for n, v in down_cli["invocations"].items()
+                       if n.startswith("train-pmgt-ncf")) for k in ("k1", "k2")}
     kernels = []
     for name, source, replaces, row, rows, launches in (
         ("dual_attention_fwd_sm", K1_SOURCE, K1_REPLACES, pick(checks, 3072),
          [r for r in checks if r["dtype"] == "float32"],
          {"serving": n_launches, "training": train["k1_launches"],
-          "train_pmgt_cli": cli_launches["k1"]}),
+          "train_pmgt_cli": cli_launches["k1"],
+          "pmgt_ncf_train": pncf_launches["train"]["k1"],
+          "pmgt_ncf_evaluate": pncf_launches["evaluate"]["k1"],
+          "pmgt_ncf_serve": pncf_launches["serve"]["k1"],
+          "train_pmgt_ncf_cli": pncf_cli["k1"]}),
         ("dual_attention_bwd_sm", K2_SOURCE, K2_REPLACES, pick(k2_checks, 3072), k2_checks,
          {"serving": kern["row"]["k2_launches"], "training": train["k2_launches"],
-          "train_pmgt_cli": cli_launches["k2"]}),
+          "train_pmgt_cli": cli_launches["k2"],
+          "pmgt_ncf_train": pncf_launches["train"]["k2"],
+          "pmgt_ncf_evaluate": pncf_launches["evaluate"]["k2"],
+          "pmgt_ncf_serve": pncf_launches["serve"]["k2"],
+          "train_pmgt_ncf_cli": pncf_cli["k2"]}),
         ("dual_attention_fwd_bm", K1_SOURCE, K3_REPLACES, pick(k3_checks, 3072),
          [r for r in k3_checks if r["dtype"] == "float32"],
          {"public_op": public["launches"]["k3"]}),
@@ -1359,11 +1838,20 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": None,  # no single PyTorch call computes it
         })
+    # K1 and K2 at the other lanes of their paths: (warm ms, cold ms, bound ms)
+    at = lambda r: [r["ms"], r["cold_ms"], r["bound_ms"]]  # noqa: E731
+    kernels[0]["ms_cold_bound_by_lanes"] = {
+        str(r["N"]): at(r) for r in checks
+        if r["dtype"] == "float32" and not r["keep_masks"] and r["N"] in (4000, 65536)}
+    kernels[1]["ms_cold_bound_by_lanes"] = {
+        str(r["N"]): at(r) for r in k2_checks if r["keep_masks"] and r["N"] == 256}
     if any(k["launches"] == 0 for k in kernels):
         raise RuntimeError(f"a kernel was not launched on its path: {kernels}")
     results.update(kernels=kernels, slice_kernel=kern["row"],
                    slice_plain=ref["row"], train=train, train_routes=routes,
-                   cross_layout=cross, public_op=public, cli=cli)
+                   cross_layout=cross, public_op=public, cli=cli, ncf=ncf["row"],
+                   pmgt_ncf=pncf["row"], dcn=dcn, downstream_cli=down_cli,
+                   downstream_profile=down_busy)
     os.makedirs(os.path.join(HERE, "outputs"), exist_ok=True)
     with open(os.path.join(HERE, "outputs", "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1)

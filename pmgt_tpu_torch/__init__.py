@@ -10,9 +10,13 @@ never JAX and never a module of ``pmgt_tpu``.
 It covers PMGT pre-training end to end: the ``train-pmgt`` command
 (``cli/main.py``: train, evaluate, export; early stopping, best/last
 checkpoints, resume) over ``PMGTTask`` (training steps with GSR + NFR,
-dropout and AdamW; validation pair-AUC; per-node CLS embedding export),
-and the public batch-major op ``ops.dual_attention_pallas``. The dual
-attention runs as two hand-written CUDA kernels, the forward
+dropout and AdamW; validation pair-AUC; per-node CLS embedding export);
+the downstream recommenders that consume that export, ``train-ncf``
+(GMF / MLP / NeuMF-end / NeuMF-pre, with PMGT item embeddings),
+``train-dcn`` and ``train-pmgt-ncf`` (a PMGT item tower inside NCF), with
+ranking evaluation and full-catalogue top-k serving; and the public
+batch-major op ``ops.dual_attention_pallas``. The dual attention runs as
+two hand-written CUDA kernels, the forward
 (``ops/csrc/dual_attention_fwd.cu``) and the backward
 (``ops/csrc/dual_attention_bwd.cu``), each in the seq-major and the
 batch-major layout, built with ``nvcc`` at first use.

@@ -1,1 +1,2 @@
-"""Command line of the port: ``train-pmgt``, ``runs``, ``make-synthetic``."""
+"""Command line of the port: ``train-pmgt``, ``train-ncf``, ``train-dcn``,
+``train-pmgt-ncf``, ``runs``, ``make-synthetic``."""

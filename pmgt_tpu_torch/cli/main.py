@@ -2,13 +2,13 @@
 built on ``argparse``:
 
     python -m pmgt_tpu_torch.cli.main [--device cuda|cpu] [--save-args F] \\
-        {train-pmgt,runs,make-synthetic} ...
+        {train-pmgt,train-ncf,train-dcn,train-pmgt-ncf,runs,make-synthetic} ...
 
-(or the ``pmgt-tpu-torch`` console script). ``train-pmgt`` takes every
-option of the JAX package's command, with the same names and defaults,
-and ``--save-args`` writes the same JSON. Options whose feature is not
-ported yet are accepted and raise ``NotImplementedError`` when a run
-starts (``tasks/pmgt_task.UNPORTED_OPTIONS``, and here the multi-host
+(or the ``pmgt-tpu-torch`` console script). The four training commands
+take every option of the JAX package's commands, with the same names and
+defaults, and ``--save-args`` writes the same JSON. Options whose feature
+is not ported yet are accepted and raise ``NotImplementedError`` when a
+run starts (``tasks/pmgt_task.UNPORTED_OPTIONS``, and here the multi-host
 trio); ``--scan-epoch`` has no counterpart (the engine runs one epoch at a
 time) and is only recorded. ``--device`` belongs to the command group and
 stays out of the saved arguments. ``train_model`` is the workload
@@ -157,7 +157,103 @@ def _add_train_pmgt(sub) -> None:
       default="auto")
     a("--feat-tables-dtype", choices=("float32", "bfloat16", "int8"),
       default=None, help="feature table storage (only float32 is ported)")
-    p.set_defaults(handler=_train_pmgt)
+    p.set_defaults(handler=functools.partial(_train, "pmgt"))
+
+
+def _add_downstream_common(p: argparse.ArgumentParser) -> None:
+    a = p.add_argument
+    a("--emb-dropout", type=float, default=0.0)
+    a("--dropout", type=float, default=0.0)
+
+
+def _add_item_init_emb(p: argparse.ArgumentParser) -> None:
+    a = p.add_argument
+    a("--item-init-emb-path", type=_existing_path, default=None,
+      help="PMGT node embeddings (.npy) for the item table")
+    a("--freeze-item-init-emb", action="store_true")
+    a("--normalize-item-init-emb", action="store_true")
+    a("--topk", type=int, default=100,
+      help="inference mode: items per user in the serving export")
+
+
+_TIEBREAK_HELP = ("score eval candidates positives-first with low-index tie-break, "
+                  "exactly like the reference (optimistic on tied scores; for "
+                  "published-number comparisons only)")
+
+
+def _add_train_ncf(sub) -> None:
+    p = sub.add_parser("train-ncf", help="train NCF (GMF / MLP / NeuMF-end / NeuMF-pre)",
+                       formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    _add_common_options(p)
+    _add_downstream_common(p)
+    a = p.add_argument
+    a("--layer-norm-eps", type=float, default=1e-12)
+    a("--use-layer-norm", action="store_true")
+    a("--alpha", type=float, default=0.5, help="GMF/MLP blend for NeuMF-pre")
+    a("--factor-num", type=int, default=32)
+    a("--num-layers", type=int, default=3)
+    a("--num-ng", type=int, default=1)
+    a("--max-sample-items", type=int, default=1000)
+    a("--gmf-run-id", default=None)
+    a("--mlp-run-id", default=None)
+    _add_item_init_emb(p)
+    a("--reference-tiebreak", action="store_true", help=_TIEBREAK_HELP)
+    p.set_defaults(handler=functools.partial(_train, "ncf"))
+
+
+def _add_train_dcn(sub) -> None:
+    p = sub.add_parser("train-dcn", help="train DCN",
+                       formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    _add_common_options(p)
+    _add_downstream_common(p)
+    a = p.add_argument
+    a("--layer-norm-eps", type=float, default=1e-12)
+    a("--use-layer-norm", action="store_true")
+    a("--factor-num", type=int, default=32)
+    a("--deep-net-num-layers", type=int, default=3)
+    a("--cross-net-num-layers", type=int, default=3)
+    a("--num-ng", type=int, default=1)
+    a("--max-sample-items", type=int, default=5)
+    _add_item_init_emb(p)
+    p.set_defaults(handler=functools.partial(_train, "dcn"))
+
+
+def _add_train_pmgt_ncf(sub) -> None:
+    p = sub.add_parser("train-pmgt-ncf",
+                       help="train PMGT_NCF (a PMGT item tower inside NCF)",
+                       formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    _add_common_options(p)
+    _add_downstream_common(p)
+    a = p.add_argument
+    a("--factor-num", type=int, default=32)
+    a("--num-layers", type=int, default=3)
+    a("--num-ng", type=int, default=1)
+    a("--max-sample-items", type=int, default=1000)
+    a("--max-ctx-neigh", type=int, default=5)
+    a("--hop-sampling-sizes", type=int, action="append", default=None,
+      help="repeat per hop (default 16 8 4)")
+    a("--hidden-size", type=int, default=128)
+    a("--intermediate-size", type=int, default=128)
+    a("--num-hidden-layers", type=int, default=5)
+    a("--num-attention-heads", type=int, default=1)
+    a("--beta", type=float, default=0.5)
+    a("--attention-impl", choices=("xla", "pallas"), default=None,
+      help="dual attention: 'pallas' the hand-written kernels (default), "
+      "'xla' the plain PyTorch formulation")
+    a("--fusion-strategy", choices=("auto", "project_tables", "gather_rows"),
+      default="auto")
+    a("--feat-tables-dtype", choices=("float32", "bfloat16", "int8"),
+      default=None, help="feature table storage (only float32 is ported)")
+    a("--shard-feat-tables", action="store_true", help="(not ported)")
+    a("--shard-graph-tables", action="store_true", help="(not ported)")
+    a("--topk", type=int, default=100,
+      help="inference mode: items per user in the serving export")
+    a("--serve-user-batch", type=int, default=64,
+      help="inference mode: users per serving tile")
+    a("--serve-item-chunk", type=int, default=1024,
+      help="inference mode: catalogue chunk per serving tile")
+    a("--reference-tiebreak", action="store_true", help=_TIEBREAK_HELP)
+    p.set_defaults(handler=functools.partial(_train, "pmgt_ncf"))
 
 
 def _add_runs(sub) -> None:
@@ -174,8 +270,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     parser = argparse.ArgumentParser(
         prog="pmgt-tpu-torch",
-        description="PMGT on PyTorch/CUDA: pre-training, evaluation, "
-        "embedding export and the run registry",
+        description="PMGT on PyTorch/CUDA: pre-training, embedding export, "
+        "the downstream recommenders (NCF, DCN, PMGT_NCF) and the run registry",
     )
     parser.add_argument("--save-args", default=None,
                         help="save the resolved arguments to a JSON file and exit")
@@ -184,6 +280,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "PyTorch versions)")
     sub = parser.add_subparsers(dest="command", required=True)
     _add_train_pmgt(sub)
+    _add_train_ncf(sub)
+    _add_train_dcn(sub)
+    _add_train_pmgt_ncf(sub)
     _add_runs(sub)
     data_cmds.add_make_synthetic(sub)
     return parser
@@ -193,17 +292,15 @@ def _make_args(raw: Dict[str, Any]) -> TrainArgs:
     raw.pop("num_workers", None)
     for name in MULTI_HOST:
         raw.pop(name, None)
-    if raw.get("hop_sampling_sizes") is None:
-        raw["hop_sampling_sizes"] = (16, 8, 4)
-    else:
-        raw["hop_sampling_sizes"] = tuple(raw["hop_sampling_sizes"])
+    if "hop_sampling_sizes" in raw:
+        raw["hop_sampling_sizes"] = tuple(raw["hop_sampling_sizes"] or (16, 8, 4))
     base = {k: v for k, v in raw.items() if k in _COMMON_KEYS}
     extra = {k: v for k, v in raw.items() if k not in _COMMON_KEYS}
     base["tags"] = tuple(tuple(t) for t in base.get("tags") or ())
     return TrainArgs(**base, extra=extra)
 
 
-def _train_pmgt(ns: argparse.Namespace):
+def _train(train_name: str, ns: argparse.Namespace):
     raw = {k: v for k, v in vars(ns).items()
            if k not in ("save_args", "device", "command", "handler")}
     multi_host = {k: raw[k] for k in MULTI_HOST if raw.get(k) is not None}
@@ -217,21 +314,21 @@ def _train_pmgt(ns: argparse.Namespace):
             f"multi-host options {sorted(multi_host)} are not ported to "
             "pmgt_tpu_torch yet (ROADMAP.md §1 item 6, multi-GPU)"
         )
-    return train_model("pmgt", args, device=ns.device)
+    return train_model(train_name, args, device=ns.device)
 
 
 @log_elapsed_time
 def train_model(train_name: str, args: TrainArgs, device: str = "cuda"):
-    """The workload contract's dispatch: check, seed, data, model, run,
-    then train / evaluate / export by ``args.mode``. (The JAX package's
-    hp-tuning knobs, ``is_hptuning`` and trial pruning, come with the
-    hp-tuning command, which is not ported.)"""
-    if train_name != "pmgt":
-        raise NotImplementedError(
-            f"{train_name} is not ported to pmgt_tpu_torch yet (ROADMAP.md "
-            "§1 item 5, downstream models)"
-        )
-    from pmgt_tpu_torch.tasks import pmgt_task as trainer
+    """The workload contract's dispatch for ``train_name`` in {"pmgt",
+    "ncf", "dcn", "pmgt_ncf"}: check, seed, data, model, run, then train /
+    evaluate / export by ``args.mode``. (The JAX package's hp-tuning
+    knobs, ``is_hptuning`` and trial pruning, come with the hp-tuning
+    command, which is not ported.)"""
+    import importlib
+
+    if train_name not in ("pmgt", "ncf", "dcn", "pmgt_ncf"):
+        raise ValueError(f"unknown workload {train_name!r}")
+    trainer = importlib.import_module(f"pmgt_tpu_torch.tasks.{train_name}_task")
 
     ctx: Dict[str, Any] = {"device": device}
     trainer.check_args(args)
@@ -315,8 +412,9 @@ def _runs(ns: argparse.Namespace) -> None:
 
 def main(argv: Optional[Sequence[str]] = None):
     """Parse ``argv`` (default: ``sys.argv[1:]``) and run the command.
-    Returns what the command returns: ``train-pmgt``'s test metrics or
-    exported embeddings, None for the others."""
+    Returns what the command returns: a training command's test metrics
+    or its export (PMGT embeddings, a downstream model's top-k), None for
+    the others."""
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",

@@ -5,6 +5,9 @@ The native format is compressed npz + json: the padded-CSR graph, the
 init embedding tables, the interaction splits and metadata. The same
 files load in both packages. The reference-format loader
 (``graph.gpickle`` + joblib encoders) is not ported yet.
+
+``load_node_init_emb`` maps an exported PMGT node-embedding table into the
+downstream tasks' item-id space.
 """
 from __future__ import annotations
 
@@ -118,3 +121,35 @@ def load_artifacts(data_dir: str, dataset_name: str) -> DatasetArtifacts:
     raise FileNotFoundError(
         f"no dataset artifacts under {d}: expected native ({_META_FILE})"
     )
+
+
+def load_node_init_emb(
+    item_classes: Optional[np.ndarray],
+    node_classes: Optional[np.ndarray],
+    node_emb: np.ndarray,
+    normalize: bool = False,
+    seed: int = 0,
+) -> np.ndarray:
+    """Remap exported PMGT node embeddings ([num_nodes, d], node-id order)
+    into item-id space (reference pmgt/pmgt/utils.py:15-40): with both
+    label-class arrays, item i takes the row of the node with its label,
+    and an item absent from the graph takes ``rng.normal(size=d)`` from
+    ``np.random.default_rng(seed)``, drawn in item order; without them the
+    table is used as it is. ``normalize`` divides every row by its L2 norm
+    (at least 1e-12)."""
+    node_emb = np.asarray(node_emb, np.float32)
+    if item_classes is None or node_classes is None:
+        out = node_emb.copy()
+    else:
+        rng = np.random.default_rng(seed)
+        node_idx = {label: i for i, label in enumerate(np.asarray(node_classes).tolist())}
+        out = np.empty((len(item_classes), node_emb.shape[1]), np.float32)
+        for i, label in enumerate(np.asarray(item_classes).tolist()):
+            row = node_idx.get(label)
+            if row is None:
+                out[i] = rng.normal(size=node_emb.shape[1]).astype(np.float32)
+            else:
+                out[i] = node_emb[row]
+    if normalize:
+        out = out / np.maximum(np.linalg.norm(out, axis=1, keepdims=True), 1e-12)
+    return out

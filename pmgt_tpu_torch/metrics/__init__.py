@@ -1,1 +1,6 @@
-from pmgt_tpu_torch.metrics.ranking import roc_auc, stable_sigmoid  # noqa: F401
+from pmgt_tpu_torch.metrics.ranking import (  # noqa: F401
+    get_ndcg,
+    get_recall,
+    roc_auc,
+    stable_sigmoid,
+)

@@ -1,16 +1,21 @@
-"""Flax → PyTorch parameter conversion for ``PMGTForPreTraining``.
+"""Flax → PyTorch parameter conversion for the port's models.
 
-``params_from_flax`` takes the JAX package's parameter tree (nested dicts
-of arrays, e.g. ``variables["params"]`` of its ``PMGTForPreTraining``)
-and returns a ``state_dict`` for this package's model:
+Each converter takes the JAX package's parameter tree (nested dicts of
+arrays, ``variables["params"]`` of the flax module) and returns a
+``state_dict`` for this package's model (float32 CPU tensors):
 
 - Dense ``kernel [in, out]`` → ``weight [out, in]``; ``bias`` → ``bias``
 - LayerNorm ``scale`` / ``bias`` → ``weight`` / ``bias``
-- ``position_embeddings`` / ``role_embeddings`` as they are
+- Embed ``embedding`` → ``weight``
+- ``position_embeddings`` / ``role_embeddings`` and DCN's cross
+  ``weight [H, 1]`` as they are
 
-It raises on a missing or an extra leaf, so a tree of another
-architecture (relative positions, pruned heads, ...) cannot load
-half-way.
+``params_from_flax`` (``PMGTForPreTraining``), ``ncf_params_from_flax``
+(``NCF``), ``dcn_params_from_flax`` (``DCN``) and
+``pmgt_ncf_params_from_flax`` (``PMGT_NCF``, whose ``bert`` subtree maps
+as the pre-training model's) raise on a missing or an extra leaf, so a
+tree of another architecture (relative positions, pruned heads, another
+variant) cannot load half-way.
 """
 from __future__ import annotations
 
@@ -54,45 +59,47 @@ def _indices(paths, pattern: str):
     return sorted(found)
 
 
-def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Convert a flax ``PMGTForPreTraining`` parameter tree to a torch
-    ``state_dict`` (float32 CPU tensors)."""
-    flat = _flatten(tree)
+class _Mapping(dict):
+    """flax path -> (torch name, transpose?)."""
+
+    def dense(self, src, dst):
+        for f, t in _DENSE.items():
+            self[f"{src}/{f}"] = (f"{dst}.{t}", f == "kernel")
+
+    def norm(self, src, dst):
+        for f, t in _NORM.items():
+            self[f"{src}/{f}"] = (f"{dst}.{t}", False)
+
+    def embed(self, src, dst):
+        self[f"{src}/embedding"] = (f"{dst}.weight", False)
+
+
+def _bert(mapping: _Mapping, flat) -> int:
+    """The ``bert`` subtree (``PMGTModel``); returns its modality count."""
     n_feats = len(_indices(flat, r"bert/embeddings/feat_linear_(\d+)/"))
     n_layers = len(_indices(flat, r"bert/layer_(\d+)/"))
-
-    # flax path -> (torch name, transpose?)
-    mapping = {}
-
-    def dense(src, dst):
-        for f, t in _DENSE.items():
-            mapping[f"{src}/{f}"] = (f"{dst}.{t}", f == "kernel")
-
-    def norm(src, dst):
-        for f, t in _NORM.items():
-            mapping[f"{src}/{f}"] = (f"{dst}.{t}", False)
-
     emb = "bert/embeddings"
     for i in range(n_feats):
-        dense(f"{emb}/feat_linear_{i}", f"bert.embeddings.feat_linear.{i}")
-        dense(f"nfr_projection_{i}", f"nfr_projections.{i}")
-    dense(f"{emb}/modality_attention", "bert.embeddings.modality_attention")
-    norm(f"{emb}/norm", "bert.embeddings.norm")
+        mapping.dense(f"{emb}/feat_linear_{i}", f"bert.embeddings.feat_linear.{i}")
+    mapping.dense(f"{emb}/modality_attention", "bert.embeddings.modality_attention")
+    mapping.norm(f"{emb}/norm", "bert.embeddings.norm")
     for name in ("position_embeddings", "role_embeddings"):
         mapping[f"{emb}/{name}"] = (f"bert.embeddings.{name}", False)
     for i in range(n_layers):
         for sub in _LAYER_DENSE:
-            dense(f"bert/layer_{i}/{sub}",
-                  f"bert.layers.{i}.{sub.replace('/', '.')}")
+            mapping.dense(f"bert/layer_{i}/{sub}",
+                          f"bert.layers.{i}.{sub.replace('/', '.')}")
         for sub in _LAYER_NORMS:
-            norm(f"bert/layer_{i}/{sub}", f"bert.layers.{i}.{sub}")
+            mapping.norm(f"bert/layer_{i}/{sub}", f"bert.layers.{i}.{sub}")
+    return n_feats
 
+
+def _convert(flat, mapping: _Mapping, what: str) -> Dict[str, torch.Tensor]:
     missing = sorted(set(mapping) - set(flat))
     extra = sorted(set(flat) - set(mapping))
     if missing or extra:
         raise ValueError(
-            f"flax tree does not match PMGTForPreTraining: missing {missing}, "
-            f"extra {extra}"
+            f"flax tree does not match {what}: missing {missing}, extra {extra}"
         )
     state = {}
     for src, (dst, transpose) in mapping.items():
@@ -100,3 +107,65 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         # np.array copies: the tensor owns writable memory.
         state[dst] = torch.from_numpy(np.array(a.T if transpose else a, order="C"))
     return state
+
+
+def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax ``PMGTForPreTraining`` tree → the port's state dict."""
+    flat = _flatten(tree)
+    mapping = _Mapping()
+    for i in range(_bert(mapping, flat)):
+        mapping.dense(f"nfr_projection_{i}", f"nfr_projections.{i}")
+    return _convert(flat, mapping, "PMGTForPreTraining")
+
+
+def ncf_params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax ``NCF`` tree (any variant, with or without layer norm) →
+    the port's ``NCF`` state dict."""
+    flat = _flatten(tree)
+    mapping = _Mapping()
+    for name in ("embed_user_GMF", "embed_item_GMF", "embed_user_MLP", "embed_item_MLP"):
+        if f"{name}/embedding" in flat:
+            mapping.embed(name, name)
+    for i in _indices(flat, r"mlp_(\d+)/"):
+        mapping.dense(f"mlp_{i}", f"mlp_layers.{i}")
+    for i in _indices(flat, r"mlp_norm_(\d+)/"):
+        mapping.norm(f"mlp_norm_{i}", f"mlp_norms.{i}")
+    mapping.dense("predict_layer", "predict_layer")
+    return _convert(flat, mapping, "NCF")
+
+
+def dcn_params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax ``DCN`` tree → the port's ``DCN`` state dict."""
+    flat = _flatten(tree)
+    mapping = _Mapping()
+    mapping.embed("user_embeddings", "user_embeddings")
+    mapping.embed("item_embeddings", "item_embeddings")
+    for i in _indices(flat, r"deep_net/deep_(\d+)/"):
+        mapping.dense(f"deep_net/deep_{i}", f"deep_net.layers.{i}")
+    for i in _indices(flat, r"deep_net/deep_norm_(\d+)/"):
+        mapping.norm(f"deep_net/deep_norm_{i}", f"deep_net.norms.{i}")
+    for i in _indices(flat, r"cross_net/cross_(\d+)/"):
+        src, dst = f"cross_net/cross_{i}", f"cross_net.layers.{i}"
+        mapping[f"{src}/weight"] = (f"{dst}.weight", False)
+        if f"{src}/bias" in flat:
+            mapping[f"{src}/bias"] = (f"{dst}.bias", False)
+        if f"{src}/LayerNorm_0/scale" in flat:
+            mapping.norm(f"{src}/LayerNorm_0", f"{dst}.norm")
+    mapping.dense("output_layer", "output_layer")
+    return _convert(flat, mapping, "DCN")
+
+
+def pmgt_ncf_params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax ``PMGT_NCF`` tree (MLP or NeuMF-end) → the port's
+    ``PMGT_NCF`` state dict."""
+    flat = _flatten(tree)
+    mapping = _Mapping()
+    _bert(mapping, flat)
+    mapping.embed("mlp_user_embeddings", "mlp_user_embeddings")
+    for i in _indices(flat, r"mlp_(\d+)/"):
+        mapping.dense(f"mlp_{i}", f"mlp_layers.{i}")
+    for name in ("gmf_user_embeddings", "gmf_item_embeddings"):
+        if f"{name}/embedding" in flat:
+            mapping.embed(name, name)
+    mapping.dense("predict_layer", "predict_layer")
+    return _convert(flat, mapping, "PMGT_NCF")

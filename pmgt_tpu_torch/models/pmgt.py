@@ -312,9 +312,14 @@ class PMGTModel(nn.Module):
 
 
 def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Elementwise binary cross-entropy with logits, no reduction."""
+    """Elementwise binary cross-entropy with logits, no reduction:
+    max(x, 0) - x·y + log1p(exp(-|x|)). max(x, 0) is written (x + |x|) / 2
+    (the same value in floating point) so that its gradient at x = 0 is
+    1/2, as ``jnp.maximum``'s is: the loss's gradient there is then the
+    true sigmoid(0) - y (``torch.clamp``'s 1 gave 1 - y, at every logit of
+    exactly 0, e.g. behind a dead ReLU tower)."""
     return (
-        torch.clamp(logits, min=0.0)
+        0.5 * (logits + torch.abs(logits))
         - logits * labels
         + torch.log1p(torch.exp(-torch.abs(logits)))
     )

@@ -32,7 +32,6 @@ integers and the distributions are the same, the draws are not.
 from __future__ import annotations
 
 import logging
-import math
 import os
 from typing import Any, Dict, Iterator, Optional, Tuple, Union
 
@@ -47,6 +46,7 @@ from pmgt_tpu_torch.core.config import (
 )
 from pmgt_tpu_torch.core.device import resolve_device
 from pmgt_tpu_torch.data.artifacts import DatasetArtifacts, load_artifacts
+from pmgt_tpu_torch.data.split import train_test_split
 from pmgt_tpu_torch.graph.container import NUM_SPECIAL_NODES
 from pmgt_tpu_torch.metrics.ranking import roc_auc, stable_sigmoid
 from pmgt_tpu_torch.models.pmgt import PMGTForPreTraining
@@ -412,11 +412,10 @@ UNPORTED_OPTIONS = {
 }
 
 
-def check_args(args: TrainArgs) -> None:
-    if args.early_criterion not in ("loss", "auc"):
-        raise ValueError(f"invalid early_criterion {args.early_criterion}")
-    if args.mode in ("eval", "inference") and args.run_id is None:
-        raise ValueError(f"mode {args.mode} requires --run-id")
+def reject_unported_options(args: TrainArgs) -> None:
+    """Raise ``NotImplementedError`` for an option of ``UNPORTED_OPTIONS``
+    set to a value the port does not run (options a workload lacks are
+    skipped)."""
     for name, (ported, item) in UNPORTED_OPTIONS.items():
         value = getattr(args, name, ported[0])
         if value not in ported:
@@ -426,20 +425,22 @@ def check_args(args: TrainArgs) -> None:
             )
 
 
+def check_args(args: TrainArgs) -> None:
+    if args.early_criterion not in ("loss", "auc"):
+        raise ValueError(f"invalid early_criterion {args.early_criterion}")
+    if args.mode in ("eval", "inference") and args.run_id is None:
+        raise ValueError(f"mode {args.mode} requires --run-id")
+    reject_unported_options(args)
+
+
 def init_run(args: TrainArgs) -> None:
     np.random.seed(args.seed)
 
 
 def train_valid_split(nodes: np.ndarray, valid_size: float, seed: int):
-    """(train, valid) split of ``nodes``: the split sklearn's
-    ``train_test_split(nodes, test_size=valid_size, random_state=seed)``
-    makes (one ``RandomState(seed)`` permutation; the first
-    ``ceil(valid_size * n)`` positions are the valid set), written out so
-    the port needs no sklearn."""
-    nodes = np.asarray(nodes)
-    n_valid = math.ceil(valid_size * len(nodes))
-    perm = np.random.RandomState(seed).permutation(len(nodes))
-    return nodes[perm[n_valid:]], nodes[perm[:n_valid]]
+    """(train, valid) split of ``nodes``: sklearn's ``train_test_split(nodes,
+    test_size=valid_size, random_state=seed)`` (``data/split.py``)."""
+    return train_test_split(nodes, valid_size, seed)
 
 
 def init_dataloader(args: TrainArgs, ctx: Dict[str, Any]) -> None:

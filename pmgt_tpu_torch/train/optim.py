@@ -16,7 +16,7 @@
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -168,13 +168,19 @@ def make_optimizer(
     total_steps: int = 1,
     warmup_ratio: Optional[float] = None,
     gradient_max_norm: Optional[float] = None,
+    frozen_names: Sequence[str] = (),
 ) -> Optimizer:
     """AdamW with decay on the parameters ``no_decay_mask`` marks and none
-    on the rest, or SGD; both behind the schedule and the optional clip."""
+    on the rest, or SGD; both behind the schedule and the optional clip.
+    ``frozen_names``: top-level modules whose parameters get no weight
+    decay either (a frozen table gets zeroed gradients in the train step;
+    no decay keeps AdamW from moving it), as the JAX ``make_optimizer``'s
+    ``frozen_names``."""
     schedule = make_schedule(lr, scheduler_type, total_steps, warmup_ratio)
     named = list(model.named_parameters())
     if optim == "adamw":
-        mask = no_decay_mask(model)
+        mask = {n: d and n.split(".")[0] not in frozen_names
+                for n, d in no_decay_mask(model).items()}
         groups = [
             {"params": [p for n, p in named if mask[n]], "weight_decay": decay},
             {"params": [p for n, p in named if not mask[n]], "weight_decay": 0.0},
