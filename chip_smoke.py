@@ -79,10 +79,26 @@ Phases (any failure raises and the script exits non-zero):
     Launches per invocation: K2 5 per step, K1 as many plus 5 per
     evaluation chunk. Checkpoint save, resume and export times.
 
+10b. ``train-pmgt`` with scripts/run_pmgt.sh's arguments (hidden 32, 3
+    layers, β 1.0, batch 32, test batch 64, lr 1e-4, decay 1e-2, max-norm
+    5.0, ``--mp-enabled``, the kernel route) on phase 10's data: 2 epochs
+    and ``--mode inference``, exact K1/K2 counts, the resident feature
+    tables bf16 (half the f32 bytes). The same checkpoint exported on the
+    plain route (bf16): max |diff| <= 5e-2·max|export| and mean <=
+    1e-2·mean|export|; the same two epochs on the plain route in bf16 (val
+    AUC within 1e-2 at each epoch) and under the f32 policy (the gap
+    printed); epoch, evaluate and export times.
 11. K1 at the downstream lanes, f32 without keep masks (checked with
     phase 2): N=4,000 (a PMGT_NCF evaluation chunk: 4 users × 1,000
     candidates) and N=65,536 (a serving tile: 64 users × 1,024 items); K2
-    at N=256 (a PMGT_NCF training step) is among phase 5's shapes.
+    at N=256 (a PMGT_NCF training step) is among phase 5's shapes. The
+    published configurations' bf16 operands are checked with phases 2 and
+    5: K1 at d=32, N=384 (PMGT's training lanes: 32 targets + 320 pairs +
+    32 masked) with and without keep masks and at d=128, N=4,000 and
+    65,536; K2 at d=32, N=384 and d=128, N=128 (PMGT_NCF's training step).
+    bf16 limits: K1 2e-2·max|out|, K2 2e-2·max(1, max|ref|) per gradient
+    (both sides round the same f32 values to bf16); times and bounds at
+    2-byte operands.
 12. NCF NeuMF-end at the default width (factor 32, 3 layers: the MLP item
     table is 128 wide) on the whole TG-shape data (134,697 users), its MLP
     item table the port's own PMGT export from phase 10: 1 epoch,
@@ -109,14 +125,35 @@ Phases (any failure raises and the script exits non-zero):
     through the port's CLI on the cut written with ``save_native``: 1 epoch
     each, then ``--mode eval`` and ``--mode inference``; every run
     FINISHED, eval reproducing the training run's test metrics within
-    1e-6, exact K1/K2 counts for PMGT_NCF and none for NCF.
+    1e-6, exact K1/K2 counts for PMGT_NCF and none for NCF. Then
+    ``train-ncf`` and ``train-dcn`` with the flags of scripts/run_ncf.sh and
+    scripts/run_dcn.sh (``--mp-enabled`` among them, which changes nothing
+    there), 1 epoch each, no kernel launched.
+15b. ``train-pmgt-ncf`` with scripts/run_pmgt_ncf.sh's arguments (hidden
+    128, 5 layers, factor 64, 2 layers, batch 128, test batch 256,
+    ``--mp-enabled``) on the cut: 1 epoch with its test and a full serving
+    sweep, exact K1/K2 counts, served ids items or -1 and no training
+    positive served; the same checkpoint evaluated and served on the
+    plain route in bf16: n10/r10/n20/r20 within 2e-2, each user's served
+    score list within 5e-2·max(1, max|score|).
+16. ``train-pmgt`` at the default width, one epoch of 4 steps
+    (``--valid-size 0.9``), with ``--no-ctx-cache``,
+    ``--gradient-checkpointing`` (K1 = 2·L, K2 = L a step),
+    ``--position-embedding-type relative_key`` (K1 = K2 = 0: relative
+    layers take the plain attention, as in JAX), ``--feat-tables-dtype
+    int8`` and ``--profile-dir`` (a trace file written); step-1 gradients
+    with and without checkpointing (f32) within 1e-6·max|g| + 1e-10.
 
 After the serving and training runs, one pass under ``torch.profiler``
 (one evaluate and one export; one training step) gives the device's busy
 time (summed kernel time) against the host wall time, and K1's and K2's
 parts of it; phase 7 profiles a step of each route in one session, and
 one last session profiles a training step, an evaluation and one serving
-user batch of NCF and of PMGT_NCF (five sessions in all).
+user batch of NCF and of PMGT_NCF, and a training step of the published
+bf16 PMGT, its evaluation, and a training step and a serving user batch of
+the published bf16 PMGT_NCF (five sessions in all; phase 16's
+``--profile-dir`` opens a sixth after them, read only for its file). The
+command time is printed before the ``kernels`` line.
 
 Float32 matmuls run in full f32 (TF32 off) on both paths. Detailed
 results also go to ``outputs/chip_smoke.json``. The last line of
@@ -136,6 +173,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
+T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -336,13 +374,14 @@ def check_k1(s: int, n: int, d: int, dtype, keep_masks: bool) -> dict:
     err = (out.float() - ref).abs().max().item()
     scale = ref.abs().max().item()
     if dtype == torch.float32:
-        ok, tol = err <= 1e-5, "max abs err <= 1e-5"
+        limit, tol = 1e-5, "max abs err <= 1e-5"
     else:
-        ok, tol = err <= 2e-2 * scale, "max abs err <= 2e-2 * max|out|"
+        limit, tol = 2e-2 * scale, "max abs err <= 2e-2 * max|out|"
+    ok = err <= limit
     row = {
         "phase": "k1_check", "S": s, "N": n, "d": d,
         "dtype": str(dtype).replace("torch.", ""), "keep_masks": keep_masks,
-        "max_abs_err": err, "max_abs_out": scale, "tolerance": tol, "ok": ok,
+        "max_abs_err": err, "max_abs_out": scale, "limit": limit, "tolerance": tol, "ok": ok,
         # Device time from CUDA-graph replay; the events time of
         # back-to-back eager calls is kept beside it (the host's issue
         # rate where the wrapper's Python costs more than the kernel).
@@ -379,9 +418,11 @@ def k2_bound_ms(s: int, n: int, d: int, elem_bytes: int, mask_bytes: int) -> dic
     }
 
 
-def check_k2(s: int, n: int, d: int, keep_masks: bool) -> dict:
-    """K2 against its plain version on one f32 input (masked keys in
-    every sequence, one zero context row); returns errors and times."""
+def check_k2(s: int, n: int, d: int, keep_masks: bool, dtype=None) -> dict:
+    """K2 against its plain version on one input (masked keys in every
+    sequence, one zero context row) in ``dtype`` (f32 by default; the plain
+    version computes in f32 and rounds as the kernel does); returns errors
+    and times."""
     import torch
 
     from pmgt_tpu_torch.ops.dual_attention import (
@@ -389,11 +430,13 @@ def check_k2(s: int, n: int, d: int, keep_masks: bool) -> dict:
         dual_attention_sm_backward_reference,
     )
 
+    dtype = torch.float32 if dtype is None else dtype
     g = torch.Generator(device="cuda").manual_seed(s * 7_919 + n)
     q, k, v, c, go = (torch.randn(s, n, d, generator=g, device="cuda")
                       for _ in range(5))
     zero_seq = n // 2
     c[s - 1, zero_seq] = 0.0  # a zero context row
+    q, k, v, c, go = (x.to(dtype) for x in (q, k, v, c, go))
     mask = torch.zeros(n, s, device="cuda")
     n_ctx = torch.randint(0, s, (n,), generator=g, device="cuda")
     keys = torch.arange(s, device="cuda")
@@ -407,37 +450,43 @@ def check_k2(s: int, n: int, d: int, keep_masks: bool) -> dict:
     got = dual_attention_sm_backward(*args)
     torch.cuda.synchronize()
     want = dual_attention_sm_backward_reference(*args)
+    # f32: 1e-5 of the gradient's scale; bf16: both sides round f32 values
+    # to bf16, so a pair may differ by one bf16 step (2^-8 of the value)
+    rel = 1e-5 if dtype == torch.float32 else 2e-2
     errs, oks = {}, []
     for name, a, b in zip(("dq", "dk", "dv", "dc"), got, want):
-        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
-            raise RuntimeError(f"K2 {name} malformed at S={s} N={n} d={d}")
+        if a.shape != b.shape or a.dtype != dtype or not bool(torch.isfinite(a).all()):
+            raise RuntimeError(f"K2 {name} malformed at S={s} N={n} d={d} {dtype}")
+        a, b = a.float(), b.float()
         err = (a - b).abs().max().item()
-        tol = 1e-5 * max(1.0, b.abs().max().item())
+        tol = rel * max(1.0, b.abs().max().item())
         errs[name] = {"max_abs_err": err, "max_abs_ref": b.abs().max().item(),
                       "limit": tol}
         oks.append(err <= tol)
     others = torch.ones(n, dtype=torch.bool, device="cuda")
     others[zero_seq] = False
-    a, b = got[3][:, others], want[3][:, others]
+    a, b = got[3][:, others].float(), want[3][:, others].float()
     err = (a - b).abs().max().item()
-    tol = 1e-5 * max(1.0, b.abs().max().item())
+    tol = rel * max(1.0, b.abs().max().item())
     errs["dc_without_zero_row"] = {"max_abs_err": err,
                                    "max_abs_ref": b.abs().max().item(),
                                    "limit": tol}
     oks.append(err <= tol)
     row = {
-        "phase": "k2_check", "S": s, "N": n, "d": d, "dtype": "float32",
+        "phase": "k2_check", "S": s, "N": n, "d": d,
+        "dtype": str(dtype).replace("torch.", ""),
         "keep_masks": keep_masks, "errors": errs,
         # the largest error among the gradients without the zero row's dc
         "max_abs_err": max(errs[x]["max_abs_err"]
                            for x in ("dq", "dk", "dv", "dc_without_zero_row")),
-        "tolerance": "each gradient max abs err <= 1e-5 * max(1, max|ref|)",
+        "limit": min(errs[x]["limit"] for x in ("dq", "dk", "dv", "dc_without_zero_row")),
+        "tolerance": f"each gradient max abs err <= {rel:g} * max(1, max|ref|)",
         "ok": all(oks),
         "ms": graph_ms(lambda: dual_attention_sm_backward(*args)),
         "cold_ms": cold_ms(lambda: dual_attention_sm_backward(*args)),
         "plain_ms": graph_ms(lambda: dual_attention_sm_backward_reference(*args)),
     }
-    row.update(k2_bound_ms(s, n, d, 4, 1 if keep_masks else 0))
+    row.update(k2_bound_ms(s, n, d, q.element_size(), 1 if keep_masks else 0))
     emit(row)
     if not row["ok"]:
         raise RuntimeError(f"K2 disagrees with its plain version: {row}")
@@ -1252,6 +1301,19 @@ def downstream_task(module: str, art, model_name: str, **extra):
     return ctx["task"]
 
 
+def task_of(module: str, args, art):
+    """The task of ``pmgt_tpu_torch.tasks.<module>`` for ``args`` (as a
+    command resolves them) on ``art``, on the card."""
+    import importlib
+
+    trainer = importlib.import_module(f"pmgt_tpu_torch.tasks.{module}")
+    ctx = {"artifacts": art, "device": "cuda"}
+    trainer.check_args(args)
+    trainer.init_dataloader(args, ctx)
+    trainer.init_model(args, ctx)
+    return ctx["task"]
+
+
 def timed(fn):
     """(fn(), ms) with the card synchronised before the stop."""
     import torch
@@ -1542,12 +1604,16 @@ def run_dcn(art_cut, emb_path: str) -> dict:
     return row
 
 
-def run_downstream_cli(art_cut, data_root: str, emb_path: str) -> dict:
+def run_downstream_cli(art_cut, data_root: str, emb_path: str, emb32_path: str) -> dict:
     """``train-ncf`` (NeuMF-end with the PMGT export) and ``train-pmgt-ncf``
     (NeuMF-end) through the port's ``main()`` on the first 1,024 users'
     interactions written with ``save_native``: 1 epoch each, then ``--mode
-    eval`` and ``--mode inference``. Counts zeroed just before and read
-    just after each invocation; PMGT_NCF's are exact."""
+    eval`` and ``--mode inference``; then ``train-ncf`` and ``train-dcn``
+    with the flags of scripts/run_ncf.sh and scripts/run_dcn.sh
+    (``--mp-enabled`` included; the 128-wide export for NCF, the published
+    PMGT's 32-wide one for DCN), 1 epoch each. Counts zeroed just before and
+    read just after each invocation; PMGT_NCF's are exact, NCF and DCN
+    launch none."""
     import shutil
 
     import torch
@@ -1584,6 +1650,17 @@ def run_downstream_cli(art_cut, data_root: str, emb_path: str) -> dict:
             (run,) = RunRegistry(log_dir).list_runs()
             invocations[f"{cmd} {mode}"] = {"wall_s": time.perf_counter() - t,
                                             "launches": read_launches(), "status": run.status}
+    # NCF and DCN with their scripts' flags (--mp-enabled among them)
+    for cmd, flags, emb in (("train-ncf", PUBLISHED_NCF, emb_path),
+                            ("train-dcn", PUBLISHED_DCN, emb32_path)):
+        log_dir = os.path.join(data_root, f"logs_{cmd}_published")
+        label = f"{cmd} published"
+        outs[(cmd, "published")] = cli_invoke(
+            ["--device", "cuda", cmd, "--dataset-name", "TGcut", "--data-dir", data_dir,
+             "--log-dir", log_dir, *flags, "--item-init-emb-path", emb, "--num-epochs", "1"],
+            invocations, label)
+        (run,) = RunRegistry(log_dir).list_runs()
+        invocations[label]["status"] = run.status
     data = split_interactions(TrainArgs(seed=0), art_cut)
     steps = len(data["train_data"].pairs) * 2 // 256
     chunk = lambda d: math.ceil(len(d.unique_users) / 4)  # noqa: E731
@@ -1612,16 +1689,407 @@ def run_downstream_cli(art_cut, data_root: str, emb_path: str) -> dict:
         "ncf_launches_none": all(invocations[f"train-ncf {m}"]["launches"]
                                  == {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
                                  for m in ("train", "eval", "inference")),
+        "published_ncf_dcn_mp": all(
+            np.isfinite(list(outs[(c, "published")].values())).all()
+            and invocations[f"{c} published"]["launches"] == {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
+            for c in ("train-ncf", "train-dcn")),
     }
     row = {"phase": "downstream_cli", "invocations": invocations, "expected_launches": want,
-           "test_metrics": {f"{c} {m}": outs[(c, m)] for c in ("train-ncf", "train-pmgt-ncf")
-                            for m in ("train", "eval")},
+           "test_metrics": {f"{c} {m}": outs[(c, m)] for c, m in outs
+                            if m in ("train", "eval", "published")},
            "checks": checks, "ok": all(checks.values())}
     emit(row)
     if not row["ok"]:
         raise RuntimeError(f"downstream CLI failed: {checks}")
     return row
 
+
+# ---- the published scripts' configurations (bf16 compute policy) -----------
+
+# scripts/run_pmgt.sh's arguments (its 30 epochs cut to 2)
+PUBLISHED_PMGT = ["--model-name", "PMGT", "--lr", "1e-4", "--decay", "1e-2",
+                  "--train-batch-size", "32", "--test-batch-size", "64",
+                  "--early-criterion", "auc", "--seed", "0", "--early", "5",
+                  "--hidden-size", "32", "--num-hidden-layers", "3", "--beta", "1.0",
+                  "--valid-size", "0.1", "--gradient-max-norm", "5.0", "--mp-enabled",
+                  "--attention-impl", "pallas", "--experiment-name", "PMGT",
+                  "--run-name", "PMGT"]
+# scripts/run_pmgt_ncf.sh's arguments (its 30 epochs cut to 1)
+PUBLISHED_PMGT_NCF = ["--model-name", "NeuMF-end", "--lr", "1e-4", "--factor-num", "64",
+                      "--num-layers", "2", "--num-ng", "1", "--hidden-size", "128",
+                      "--num-hidden-layers", "5", "--train-batch-size", "128",
+                      "--test-batch-size", "256", "--early-criterion", "n20", "--seed", "0",
+                      "--early", "5", "--mp-enabled", "--gradient-max-norm", "5.0",
+                      "--experiment-name", "PMGT_NCF", "--run-name", "PMGT_NCF"]
+# scripts/run_ncf.sh's and scripts/run_dcn.sh's (60 epochs cut to 1; each
+# takes the item embeddings its script names: a 128-wide export for NCF,
+# the published PMGT's 32-wide one for DCN)
+PUBLISHED_NCF = ["--model-name", "NeuMF-end", "--lr", "1e-4", "--decay", "0",
+                 "--emb-dropout", "0", "--dropout", "0", "--factor-num", "64",
+                 "--num-layers", "2", "--num-ng", "1", "--train-batch-size", "128",
+                 "--test-batch-size", "256", "--early-criterion", "n20", "--seed", "0",
+                 "--early", "10", "--mp-enabled", "--gradient-max-norm", "5.0",
+                 "--normalize-item-init-emb"]
+PUBLISHED_DCN = ["--model-name", "DCN", "--lr", "1e-3", "--decay", "1e-3",
+                 "--emb-dropout", "0.2", "--dropout", "0", "--factor-num", "16",
+                 "--deep-net-num-layers", "1", "--cross-net-num-layers", "4", "--num-ng", "1",
+                 "--train-batch-size", "128", "--test-batch-size", "256",
+                 "--early-criterion", "auc", "--seed", "0", "--early", "10", "--mp-enabled",
+                 "--gradient-max-norm", "5.0", "--use-layer-norm", "--normalize-item-init-emb"]
+
+
+def cli_invoke(argv, invocations: dict, label: str):
+    """``main(argv)`` with the counts zeroed just before and read just
+    after; records the wall time and the launches under ``label``."""
+    import torch
+
+    from pmgt_tpu_torch.cli.main import main as cli_main
+
+    torch.cuda.synchronize()
+    zero_launches()
+    t = time.perf_counter()
+    out = cli_main(argv)
+    torch.cuda.synchronize()
+    invocations[label] = {"wall_s": time.perf_counter() - t, "launches": read_launches()}
+    return out
+
+
+def args_of(argv):
+    """The ``TrainArgs`` a training command line resolves to (through
+    ``--save-args``, as the command itself resolves them)."""
+    import tempfile
+
+    from pmgt_tpu_torch.cli.main import main as cli_main
+    from pmgt_tpu_torch.core.config import TrainArgs
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "args.json")
+        cli_main(["--save-args", path, *argv])
+        return TrainArgs.load(path)
+
+
+def auc_by_epoch(log_dir: str) -> dict:
+    """{epoch: val/auc} and {epoch: epoch_time s} of the one run in
+    ``log_dir``."""
+    from pmgt_tpu_torch.train.registry import RunRegistry
+
+    (run,) = RunRegistry(log_dir).list_runs()
+    rows = run.metrics()
+    return ({m["epoch"]: m["value"] for m in rows if m["name"] == "val/auc"},
+            {m["epoch"]: m["value"] for m in rows if m["name"] == "epoch_time"}, run)
+
+
+def run_published_pmgt(data_dir: str, root: str) -> dict:
+    """``train-pmgt`` with scripts/run_pmgt.sh's arguments (hidden 32, 3
+    layers, β 1.0, batch 32, ``--mp-enabled``, the kernel route) on the
+    TG-shape data of the ``cli`` phase: 2 epochs, then ``--mode
+    inference``; exact K1/K2 counts; the resident feature tables bf16. The
+    same checkpoint exported on the plain route (bf16) within a bf16 limit;
+    the same two epochs on the plain route in bf16 (val AUC within 1e-2 at
+    each epoch) and under the f32 policy (the gap printed). Evaluate and
+    export times from the restored best checkpoint in this process."""
+    import shutil
+
+    import torch
+
+    from pmgt_tpu_torch.core.quant import table_nbytes
+    from pmgt_tpu_torch.tasks import pmgt_task
+
+    shutil.rmtree(root, ignore_errors=True)
+    invocations, exports = {}, {}
+    common = ["--dataset-name", "TG", "--data-dir", data_dir]
+
+    def train(label, *extra):
+        log_dir = os.path.join(root, f"logs_{label}")
+        out = cli_invoke(["--device", "cuda", "train-pmgt", *common, "--log-dir", log_dir,
+                          *PUBLISHED_PMGT, *extra, "--num-epochs", "2"],
+                         invocations, f"train_{label}")
+        return out, log_dir
+
+    def export(label, log_dir, run_id, *extra):
+        path = os.path.join(root, f"emb_{label}.npy")
+        cli_invoke(["--device", "cuda", "train-pmgt", *common, "--log-dir", log_dir,
+                    *PUBLISHED_PMGT, *extra, "--mode", "inference", "--run-id", run_id,
+                    "--inference-result-path", path], invocations, f"inference_{label}")
+        exports[label] = np.load(path)
+        return path
+
+    test_k, log_k = train("kernel")
+    auc_k, epoch_s, run = auc_by_epoch(log_k)
+    emb_path = export("kernel", log_k, run.run_id)
+    export("plain_same_params", log_k, run.run_id, "--attention-impl", "xla")
+    test_p, log_p = train("plain", "--attention-impl", "xla")
+    auc_p, _, _ = auc_by_epoch(log_p)
+    argv_f32 = [x for x in PUBLISHED_PMGT if x != "--mp-enabled"]
+    log_f = os.path.join(root, "logs_f32")
+    cli_invoke(["--device", "cuda", "train-pmgt", *common, "--log-dir", log_f, *argv_f32,
+                "--num-epochs", "2"], invocations, "train_f32_policy")
+    auc_f, epoch_s_f32, _ = auc_by_epoch(log_f)
+
+    # the bf16 task in this process: resident tables, evaluate and export times
+    args = args_of(["train-pmgt", *common, "--log-dir", log_k, *PUBLISHED_PMGT,
+                    "--mode", "eval", "--run-id", run.run_id])
+    ctx = {"device": "cuda"}
+    pmgt_task.init_dataloader(args, ctx)
+    pmgt_task.init_model(args, ctx)
+    task = ctx["task"]
+    pmgt_task._maybe_restore(args, task, load_best=True)
+    tables = {"dtypes": [str(t.dtype).replace("torch.", "") for t in task.feat_tables],
+              "bytes": sum(table_nbytes(t) for t in task.feat_tables),
+              "f32_bytes": sum(4 * t.numel() for t in task.feat_tables)}
+    task.evaluate("valid")
+    _, evaluate_ms = timed(lambda: task.evaluate("valid"))
+    task.export_embeddings()
+    _, export_ms = timed(task.export_embeddings)
+
+    layers = task.config.num_hidden_layers
+    steps = len(ctx["train_nodes"]) // 32
+    chunks = math.ceil(len(ctx["valid_nodes"]) / 64)
+    export_chunks = math.ceil(task.artifacts.num_nodes / 64)
+    none = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
+    want = {"train_kernel": {**none, "k1": layers * (2 * steps + 3 * chunks),
+                             "k2": layers * 2 * steps},
+            "inference_kernel": {**none, "k1": layers * export_chunks},
+            "inference_plain_same_params": none, "train_plain": none,
+            "train_f32_policy": {**none, "k1": layers * (2 * steps + 3 * chunks),
+                                 "k2": layers * 2 * steps}}
+    emb_k, emb_p = exports["kernel"], exports["plain_same_params"]
+    diff = np.abs(emb_k - emb_p)
+    auc_gap = max(abs(auc_k[e] - auc_p[e]) for e in auc_k)
+    checks = {
+        "launches": all(invocations[k]["launches"] == w for k, w in want.items()),
+        "tables_bf16": tables["dtypes"] == ["bfloat16", "bfloat16"]
+        and 2 * tables["bytes"] == tables["f32_bytes"],
+        "export": emb_k.shape == (task.artifacts.num_nodes, 32) and emb_k.dtype == np.float32
+        and bool(np.isfinite(emb_k).all()),
+        "val_auc_two_epochs": sorted(auc_k) == [0, 1] == sorted(auc_p) == sorted(auc_f),
+        "routes_val_auc_within_1e-2": auc_gap <= 1e-2,
+        "routes_export_within_bf16_limit": float(diff.max()) <= 5e-2 * float(np.abs(emb_k).max())
+        and float(diff.mean()) <= 1e-2 * float(np.abs(emb_k).mean()),
+        "metrics_finite": bool(np.isfinite([*test_k.values(), *test_p.values()]).all()),
+    }
+    row = {
+        "phase": "published_pmgt", "script": "scripts/run_pmgt.sh (2 of its 30 epochs)",
+        "invocations": invocations, "expected_launches": want,
+        "steps_per_epoch": steps, "eval_chunks": chunks,
+        "feature_tables": tables, "val_auc_kernel": auc_k, "val_auc_plain": auc_p,
+        "val_auc_f32_policy": auc_f, "routes_val_auc_max_gap": auc_gap,
+        "bf16_vs_f32_policy_val_auc_gap": {e: auc_k[e] - auc_f[e] for e in auc_k},
+        "routes_export_max_abs_diff": float(diff.max()),
+        "routes_export_mean_abs_diff": float(diff.mean()),
+        "export_max_abs": float(np.abs(emb_k).max()),
+        "epoch_s": epoch_s, "epoch_s_f32_policy": epoch_s_f32,
+        "evaluate_ms": evaluate_ms, "export_ms": export_ms,
+        "test_kernel": test_k, "test_plain": test_p,
+        "checks": checks, "ok": all(checks.values()),
+    }
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"published PMGT failed: {checks}")
+    batch = next(task.train_batches(5))
+    task.on_epoch_start(5)
+    profiled = (
+        ("published_pmgt_train_step", lambda: (task.train_step(batch), torch.cuda.synchronize())),
+        ("published_pmgt_evaluate", lambda: task.evaluate("valid")),
+    )
+    return {"row": row, "emb_path": emb_path, "profiled": profiled}
+
+
+def served_rows_close(a: dict, b: dict) -> dict:
+    """Two serving exports of the same users: each user's served score
+    list (descending, as served) on one route against the other's, so a
+    near-tie served in the other order does not count; and the share of
+    slots whose ids differ."""
+    sa, sb = a["scores"], b["scores"]
+    fin = np.isfinite(sa) & np.isfinite(sb)
+    diff = np.abs(np.subtract(sa, sb, where=fin, out=np.zeros_like(sa)))
+    return {"score_max_abs_diff": float(diff.max()), "score_max_abs": float(np.abs(sa[fin]).max()),
+            "slots_differing": int((a["item_ids"] != b["item_ids"]).sum()),
+            "same_minus_inf": bool((np.isneginf(sa) == np.isneginf(sb)).all())}
+
+
+def run_published_pmgt_ncf(art_cut, data_dir: str, root: str) -> dict:
+    """``train-pmgt-ncf`` with scripts/run_pmgt_ncf.sh's arguments (hidden
+    128, 5 layers, factor 64, 2 layers, batch 128, ``--mp-enabled``) on the
+    1,024-user cut written by ``downstream_cli``: 1 epoch with its test,
+    then a full serving sweep; exact K1/K2 counts; served ids items or -1
+    and no training positive served. The same checkpoint evaluated and
+    served on the plain route in bf16: n20/r20 within 2e-2 and the served
+    score lists within 5e-2·max(1, max|score|)."""
+    import shutil
+
+    import torch
+
+    from pmgt_tpu_torch.core.config import TrainArgs
+    from pmgt_tpu_torch.tasks.interaction_base import split_interactions
+    from pmgt_tpu_torch.train.registry import RunRegistry
+
+    shutil.rmtree(root, ignore_errors=True)
+    log_dir = os.path.join(root, "logs")
+    base = ["--device", "cuda", "train-pmgt-ncf", "--dataset-name", "TGcut", "--data-dir",
+            data_dir, "--log-dir", log_dir, *PUBLISHED_PMGT_NCF]
+    invocations, served = {}, {}
+    test_k = cli_invoke([*base, "--num-epochs", "1"], invocations, "train")
+    (run,) = RunRegistry(log_dir).list_runs()
+    rid = ["--run-id", run.run_id]
+    for label, extra in (("kernel", []), ("plain", ["--attention-impl", "xla"])):
+        npz = os.path.join(root, f"top_{label}.npz")
+        cli_invoke([*base, *extra, "--mode", "inference", *rid, "--inference-result-path", npz],
+                   invocations, f"inference_{label}")
+        z = np.load(npz)
+        served[label] = {k: z[k] for k in z.files}
+    test_p = cli_invoke([*base, "--attention-impl", "xla", "--mode", "eval", *rid],
+                        invocations, "eval_plain")
+
+    data = split_interactions(TrainArgs(seed=0), art_cut)
+    train_data = data["train_data"]
+    steps = len(train_data.pairs) * 2 // 128
+    chunk = lambda d: math.ceil(len(d.unique_users) / 4)  # noqa: E731
+    tiles = math.ceil(art_cut.num_users / 64) * math.ceil(art_cut.num_items / 1024)
+    none = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
+    want = {"train": {**none, "k1": 5 * (steps + chunk(data["valid_data"])
+                                         + chunk(data["test_data"])), "k2": 5 * steps},
+            "inference_kernel": {**none, "k1": 5 * tiles},
+            "inference_plain": none, "eval_plain": none}
+
+    class _Task:  # what serve_checks reads
+        pass
+
+    holder = _Task()
+    holder.train_data = train_data
+    checks_k = serve_checks(holder, served["kernel"])
+    close = served_rows_close(served["kernel"], served["plain"])
+    n_gap = max(abs(test_k[k] - test_p[k]) for k in ("test/n20", "test/r20", "test/n10",
+                                                       "test/r10"))
+    checks = {
+        "launches": all(invocations[k]["launches"] == w for k, w in want.items()),
+        "served_ids": checks_k["ok"],
+        "served_all_users": served["kernel"]["item_ids"].shape == (art_cut.num_users, 100),
+        "routes_ranking_within_2e-2": n_gap <= 2e-2,
+        "routes_scores_within_bf16_limit": close["same_minus_inf"]
+        and close["score_max_abs_diff"] <= 5e-2 * max(1.0, close["score_max_abs"]),
+        "metrics_finite": bool(np.isfinite([*test_k.values(), *test_p.values()]).all()),
+    }
+    row = {"phase": "published_pmgt_ncf", "script": "scripts/run_pmgt_ncf.sh (1 of its 30 "
+           "epochs)", "data": f"interactions of the first {PMGT_NCF_USERS} users",
+           "invocations": invocations, "expected_launches": want, "steps": steps,
+           "serve_tiles": tiles, "test_kernel": test_k, "test_plain_same_params": test_p,
+           "routes_ranking_max_gap": n_gap, "routes_served": close, "served": checks_k,
+           "checks": checks, "ok": all(checks.values())}
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"published PMGT_NCF failed: {checks}")
+
+    # the same configuration in this process, for one profiled pass
+    args = args_of(["train-pmgt-ncf", "--dataset-name", "TGcut", "--data-dir", data_dir,
+                    "--log-dir", log_dir, *PUBLISHED_PMGT_NCF])
+    task = task_of("pmgt_ncf_task", args, art_cut)
+    task.on_epoch_start(0)
+    batch = next(task.train_batches(0))
+    score = task.scorer()
+    users = torch.arange(64, device="cuda")
+    pos = torch.as_tensor(task.positives()[:64], dtype=torch.int64, device="cuda")
+    profiled = (
+        ("published_pmgt_ncf_train_step", lambda: (task.train_step(batch),
+                                                   torch.cuda.synchronize())),
+        ("published_pmgt_ncf_serving_user_batch", lambda: (
+            task.serve_users(score, users, pos, 100, 1024), torch.cuda.synchronize())),
+    )
+    return {"row": row, "profiled": profiled}
+
+
+def run_options(data_dir: str, root: str) -> dict:
+    """Short ``train-pmgt`` runs at the default width (hidden 128, 5
+    layers, batch 256), one epoch of 4 steps (``--valid-size 0.9``: 1,083
+    training nodes), with ``--no-ctx-cache``, ``--gradient-checkpointing``
+    (K1 = 2·L and K2 = L a step), ``--position-embedding-type
+    relative_key`` (K1 = K2 = 0, as in JAX: relative layers take the plain
+    attention), ``--feat-tables-dtype int8`` and ``--profile-dir`` (the
+    trace file exists). Then step-1 gradients with and without
+    checkpointing, f32, from the same weights and draws: within
+    1e-6·max|g| + 1e-10 per parameter, and K1 = 2·L, K2 = L for that
+    step."""
+    import shutil
+
+    import torch
+
+    from pmgt_tpu_torch.tasks import pmgt_task
+    from pmgt_tpu_torch.train.registry import RunRegistry
+
+    shutil.rmtree(root, ignore_errors=True)
+    common = ["--dataset-name", "TG", "--data-dir", data_dir, "--model-name", "pmgt",
+              "--early-criterion", "auc", "--seed", "0", "--valid-size", "0.9",
+              "--num-epochs", "1"]
+    prof = os.path.join(root, "profile")
+    cases = {"no_ctx_cache": ["--no-ctx-cache"],
+             "gradient_checkpointing": ["--gradient-checkpointing"],
+             "relative_key": ["--position-embedding-type", "relative_key"],
+             "int8_tables": ["--feat-tables-dtype", "int8"],
+             "profile_dir": ["--profile-dir", prof]}
+    invocations, results, statuses = {}, {}, {}
+    for label, extra in cases.items():
+        log_dir = os.path.join(root, f"logs_{label}")
+        results[label] = cli_invoke(["--device", "cuda", "train-pmgt", *common, "--log-dir",
+                                     log_dir, *extra], invocations, label)
+        (run,) = RunRegistry(log_dir).list_runs()
+        statuses[label] = run.status
+
+    args = args_of(["train-pmgt", *common])
+    ctx = {"device": "cuda"}
+    pmgt_task.init_dataloader(args, ctx)
+    steps = len(ctx["train_nodes"]) // 256
+    chunks = math.ceil(len(ctx["valid_nodes"]) / 256)
+    layers = 5
+    none = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
+    plain = {**none, "k1": layers * (steps + 2 * chunks), "k2": layers * steps}
+    want = {"no_ctx_cache": plain, "int8_tables": plain, "profile_dir": plain,
+            "gradient_checkpointing": {**none, "k1": layers * (2 * steps + 2 * chunks),
+                                       "k2": layers * steps},
+            "relative_key": none}
+
+    # step-1 gradients with and without checkpointing (f32)
+    tasks = {}
+    for remat in (False, True):
+        a = args_of(["train-pmgt", *common, *(["--gradient-checkpointing"] if remat else [])])
+        tasks[remat] = pmgt_task.PMGTTask(a, ctx["artifacts"], ctx["train_nodes"],
+                                          ctx["valid_nodes"], device="cuda")
+    tasks[True].model.load_state_dict(tasks[False].model.state_dict())
+    tasks[False].on_epoch_start(0)
+    tasks[True]._train_ctx = tasks[False]._train_ctx
+    tasks[True]._train_ctx_tag = tasks[False]._train_ctx_tag
+    grads, step_launches = {}, {}
+    for remat, t in tasks.items():
+        targets, gen = next(t.train_batches(0))
+        torch.cuda.synchronize()
+        zero_launches()
+        t.accumulate_gradients(targets, gen)
+        torch.cuda.synchronize()
+        step_launches[remat] = read_launches()
+        grads[remat] = {n: p.grad.detach().clone() for n, p in t.model.named_parameters()}
+    worst = 0.0
+    for n, g in grads[False].items():
+        err = (grads[True][n] - g).abs().max().item()
+        worst = max(worst, err / (1e-6 * g.abs().max().item() + 1e-10))
+    trace = [f for f in os.listdir(prof)] if os.path.isdir(prof) else []
+    checks = {
+        "statuses_finished": all(v == "FINISHED" for v in statuses.values()),
+        "metrics_finite": all(np.isfinite(list(r.values())).all() for r in results.values()),
+        "launches": all(invocations[k]["launches"] == w for k, w in want.items()),
+        "profile_trace_written": any(f.endswith(".pt.trace.json") for f in trace),
+        "remat_step1_grads_within_1e-6": worst <= 1.0,
+        "remat_step_launches": step_launches[True] == {**none, "k1": 2 * layers, "k2": layers}
+        and step_launches[False] == {**none, "k1": layers, "k2": layers},
+    }
+    row = {"phase": "options", "steps": steps, "eval_chunks": chunks,
+           "invocations": invocations, "expected_launches": want, "test": results,
+           "profile_files": trace, "remat_step1_grad_err_over_limit": worst,
+           "step_launches": {"gradient_checkpointing": step_launches[True],
+                             "plain": step_launches[False]},
+           "checks": checks, "ok": all(checks.values())}
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"options failed: {checks}")
+    return row
 
 
 def main() -> int:
@@ -1668,12 +2136,21 @@ def main() -> int:
     # K1 at PMGT_NCF's lanes: an evaluation chunk (4 users x 1,000
     # candidates) and a serving tile (64 users x 1,024 items), no dropout
     checks += [check_k1(6, n, 128, torch.float32, False) for n in (4000, 65536)]
+    # bf16 at the published configurations: PMGT (d = 32, 384 training
+    # lanes: 32 targets + 320 pairs + 32 masked) and PMGT_NCF (an evaluation
+    # chunk and a serving tile)
+    checks += [check_k1(6, 384, 32, torch.bfloat16, km) for km in (False, True)]
+    checks += [check_k1(6, n, 128, torch.bfloat16, False) for n in (4000, 65536)]
     results["k1_checks"] = checks
 
     # ---- 5. K2 against its plain version (N=256: PMGT_NCF's training step)
     k2_checks = [check_k2(6, n, 128, km) for n in (3072, 768, 256, 37)
                  for km in (False, True)]
-    results["k2_checks"] = k2_checks
+    # bf16 at the published training steps: PMGT (d = 32, 384 lanes) and
+    # PMGT_NCF (d = 128, 128 lanes), dropout on
+    k2_bf16 = [check_k2(6, 384, 32, km, torch.bfloat16) for km in (False, True)]
+    k2_bf16.append(check_k2(6, 128, 128, True, torch.bfloat16))
+    results["k2_checks"] = k2_checks + k2_bf16
 
     # ---- 5b. untimed sweep of all four kernels over edge shapes ---------
     results["edge_sweep"] = sweep_edges()
@@ -1772,19 +2249,32 @@ def main() -> int:
     # ---- 10. train-pmgt end to end through the CLI ----------------------
     cli = run_cli(art, os.path.join(HERE, "outputs", "chip_smoke_cli"), smi)
 
+    # ---- 10b. train-pmgt with scripts/run_pmgt.sh's arguments (bf16) ------
+    cli_data = os.path.join(HERE, "outputs", "chip_smoke_cli", "data")  # phase 10's data
+    published = run_published_pmgt(cli_data, os.path.join(HERE, "outputs",
+                                                           "chip_smoke_published"))
+
     # ---- 11-15. the downstream recommenders --------------------------------
     emb_path = os.path.join(HERE, "outputs", "chip_smoke_cli", "emb.npy")  # phase 10's export
     ncf = run_ncf(art, emb_path)
     art_cut = cut_users(art, PMGT_NCF_USERS)
     pncf = run_pmgt_ncf(art_cut)
     dcn = run_dcn(art_cut, emb_path)
-    down_cli = run_downstream_cli(art_cut, os.path.join(HERE, "outputs", "chip_smoke_downstream"),
-                                  emb_path)
-    # where the time goes: one profiled pass of each downstream path, in
-    # one profiler session (not counted)
-    down_busy = profile_phases(ncf["profiled"] + pncf["profiled"])
+    down_root = os.path.join(HERE, "outputs", "chip_smoke_downstream")
+    down_cli = run_downstream_cli(art_cut, down_root, emb_path, published["emb_path"])
+    # ---- 15b. train-pmgt-ncf with scripts/run_pmgt_ncf.sh's arguments (bf16)
+    pub_ncf = run_published_pmgt_ncf(art_cut, os.path.join(down_root, "data"),
+                                     os.path.join(HERE, "outputs", "chip_smoke_published_ncf"))
+    # where the time goes: one profiled pass of each downstream path and of
+    # the published bf16 paths, in one profiler session (not counted)
+    down_busy = profile_phases(ncf["profiled"] + pncf["profiled"] + published["profiled"]
+                               + pub_ncf["profiled"])
     emit({"phase": "downstream_profile",
           "profiled": down_busy or "not measured: the profiler saw no device kernel"})
+
+    # ---- 16. the remaining options of train-pmgt (--profile-dir opens the
+    # last profiler session, so it comes after the profiled passes)
+    options = run_options(cli_data, os.path.join(HERE, "outputs", "chip_smoke_options"))
 
     # ---- summary ---------------------------------------------------------
     # Each kernel at its main path's shape (K1/K2 the training lanes, K3/K4
@@ -1794,11 +2284,18 @@ def main() -> int:
         return next(r for r in rows if r.get("N", r.get("B*h")) == n and r["keep_masks"]
                     and r["dtype"] == "float32" and r.get("h", 1) == 1)
 
-    cli_launches = {k: sum(v["launches"][k] for v in cli["invocations"].values())
-                    for k in ("k1", "k2")}
+    def summed(invocations, keep=lambda name: True):
+        return {k: sum(v["launches"][k] for n, v in invocations.items() if keep(n))
+                for k in ("k1", "k2")}
+
+    cli_launches = summed(cli["invocations"])
     pncf_launches = pncf["row"]["launches"]
-    pncf_cli = {k: sum(v["launches"][k] for n, v in down_cli["invocations"].items()
-                       if n.startswith("train-pmgt-ncf")) for k in ("k1", "k2")}
+    pncf_cli = summed(down_cli["invocations"], lambda n: n.startswith("train-pmgt-ncf"))
+    pub = published["row"]["invocations"]
+    pub_launches = summed(pub, lambda n: n in ("train_kernel", "inference_kernel"))
+    pub_f32_launches = summed(pub, lambda n: n == "train_f32_policy")
+    pub_ncf_launches = summed(pub_ncf["row"]["invocations"])
+    opt_launches = summed(options["invocations"])
     kernels = []
     for name, source, replaces, row, rows, launches in (
         ("dual_attention_fwd_sm", K1_SOURCE, K1_REPLACES, pick(checks, 3072),
@@ -1808,14 +2305,22 @@ def main() -> int:
           "pmgt_ncf_train": pncf_launches["train"]["k1"],
           "pmgt_ncf_evaluate": pncf_launches["evaluate"]["k1"],
           "pmgt_ncf_serve": pncf_launches["serve"]["k1"],
-          "train_pmgt_ncf_cli": pncf_cli["k1"]}),
+          "train_pmgt_ncf_cli": pncf_cli["k1"],
+          "published_pmgt_bf16": pub_launches["k1"],
+          "published_pmgt_f32_policy": pub_f32_launches["k1"],
+          "published_pmgt_ncf_bf16": pub_ncf_launches["k1"],
+          "options": opt_launches["k1"]}),
         ("dual_attention_bwd_sm", K2_SOURCE, K2_REPLACES, pick(k2_checks, 3072), k2_checks,
          {"serving": kern["row"]["k2_launches"], "training": train["k2_launches"],
           "train_pmgt_cli": cli_launches["k2"],
           "pmgt_ncf_train": pncf_launches["train"]["k2"],
           "pmgt_ncf_evaluate": pncf_launches["evaluate"]["k2"],
           "pmgt_ncf_serve": pncf_launches["serve"]["k2"],
-          "train_pmgt_ncf_cli": pncf_cli["k2"]}),
+          "train_pmgt_ncf_cli": pncf_cli["k2"],
+          "published_pmgt_bf16": pub_launches["k2"],
+          "published_pmgt_f32_policy": pub_f32_launches["k2"],
+          "published_pmgt_ncf_bf16": pub_ncf_launches["k2"],
+          "options": opt_launches["k2"]}),
         ("dual_attention_fwd_bm", K1_SOURCE, K3_REPLACES, pick(k3_checks, 3072),
          [r for r in k3_checks if r["dtype"] == "float32"],
          {"public_op": public["launches"]["k3"]}),
@@ -1845,13 +2350,23 @@ def main() -> int:
         if r["dtype"] == "float32" and not r["keep_masks"] and r["N"] in (4000, 65536)}
     kernels[1]["ms_cold_bound_by_lanes"] = {
         str(r["N"]): at(r) for r in k2_checks if r["keep_masks"] and r["N"] == 256}
+    # bf16 operands at the published shapes: (warm ms, cold ms, bound ms at
+    # 2-byte operands, max abs err, its limit)
+    bf16 = lambda r: [*at(r), r["max_abs_err"], r["limit"]]  # noqa: E731
+    kernels[0]["bf16"] = {f"d{r['d']}_N{r['N']}{'_keep' if r['keep_masks'] else ''}": bf16(r)
+                          for r in checks if r["dtype"] == "bfloat16"}
+    kernels[1]["bf16"] = {f"d{r['d']}_N{r['N']}{'_keep' if r['keep_masks'] else ''}": bf16(r)
+                          for r in k2_bf16}
     if any(k["launches"] == 0 for k in kernels):
         raise RuntimeError(f"a kernel was not launched on its path: {kernels}")
     results.update(kernels=kernels, slice_kernel=kern["row"],
                    slice_plain=ref["row"], train=train, train_routes=routes,
                    cross_layout=cross, public_op=public, cli=cli, ncf=ncf["row"],
                    pmgt_ncf=pncf["row"], dcn=dcn, downstream_cli=down_cli,
-                   downstream_profile=down_busy)
+                   published_pmgt=published["row"], published_pmgt_ncf=pub_ncf["row"],
+                   options=options, downstream_profile=down_busy,
+                   command_s=time.perf_counter() - T_START)
+    emit({"phase": "command_time", "seconds": results["command_s"]})
     os.makedirs(os.path.join(HERE, "outputs"), exist_ok=True)
     with open(os.path.join(HERE, "outputs", "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1)

@@ -6,10 +6,12 @@ built on ``argparse``:
 
 (or the ``pmgt-tpu-torch`` console script). The four training commands
 take every option of the JAX package's commands, with the same names and
-defaults, and ``--save-args`` writes the same JSON. Options whose feature
-is not ported yet are accepted and raise ``NotImplementedError`` when a
-run starts (``tasks/pmgt_task.UNPORTED_OPTIONS``, and here the multi-host
-trio); ``--scan-epoch`` has no counterpart (the engine runs one epoch at a
+defaults, and ``--save-args`` writes the same JSON. Only the multi-GPU
+options are not ported yet: they are accepted and raise
+``NotImplementedError`` when a run starts (``tasks/pmgt_task.
+UNPORTED_OPTIONS``, and here the multi-host trio). ``--profile-dir`` writes
+a ``torch.profiler`` trace of the training (``--mode train`` only, as the
+JAX command traces only the training); ``--scan-epoch`` has no counterpart (the engine runs one epoch at a
 time) and is only recorded. ``--device`` belongs to the command group and
 stays out of the saved arguments. ``train_model`` is the workload
 dispatcher: it finalizes the status (FINISHED or FAILED) only of a run
@@ -87,7 +89,9 @@ def _add_common_options(p: argparse.ArgumentParser) -> None:
     a("--optim", choices=("adamw", "sgd"), default="adamw")
     a("--lr", type=float, default=1e-3)
     a("--decay", type=float, default=1e-2, help="weight decay")
-    a("--mp-enabled", action="store_true", help="bf16 compute (not ported)")
+    a("--mp-enabled", action="store_true",
+      help="bf16 compute policy with f32 parameters (PMGT, PMGT_NCF; NCF and "
+      "DCN accept it and change nothing, as the JAX package)")
     a("--early", type=int, default=5, help="early stopping patience")
     a("--early-criterion", default="loss")
     a("--num-workers", type=int, default=0, help="unused (kept for config compatibility)")
@@ -109,7 +113,8 @@ def _add_common_options(p: argparse.ArgumentParser) -> None:
     a("--coordinator-address", default=None, help="multi-host (not ported)")
     a("--num-processes", type=int, default=None, help="multi-host (not ported)")
     a("--process-id", type=int, default=None, help="multi-host (not ported)")
-    a("--profile-dir", default=None, help="profiler trace directory (not ported)")
+    a("--profile-dir", default=None,
+      help="write a torch.profiler trace of the training to this directory")
     a("--swa-start", type=int, default=None,
       help="enable Stochastic Weight Averaging from this epoch")
     a("--eval-init", action="store_true",
@@ -145,9 +150,10 @@ def _add_train_pmgt(sub) -> None:
       "'xla' the plain PyTorch formulation")
     a("--position-embedding-type", default="absolute",
       choices=("absolute", "relative_key", "relative_key_query"))
-    a("--gradient-checkpointing", action="store_true", help="(not ported)")
+    a("--gradient-checkpointing", action="store_true",
+      help="recompute each encoder layer in the backward")
     a("--ctx-cache", action=argparse.BooleanOptionalAction, default=True,
-      help="per-epoch context cache (off = per-step sampling, not ported)")
+      help="per-epoch context cache (off = per-step sampling)")
     a("--scan-epoch", action=argparse.BooleanOptionalAction, default=True,
       help="no counterpart: the engine runs one epoch at a time and "
       "fetches its losses once (recorded for config compatibility)")
@@ -156,7 +162,8 @@ def _add_train_pmgt(sub) -> None:
     a("--fusion-strategy", choices=("auto", "project_tables", "gather_rows"),
       default="auto")
     a("--feat-tables-dtype", choices=("float32", "bfloat16", "int8"),
-      default=None, help="feature table storage (only float32 is ported)")
+      default=None,
+      help="feature table storage (default: bfloat16 with --mp-enabled, else float32)")
     p.set_defaults(handler=functools.partial(_train, "pmgt"))
 
 
@@ -243,7 +250,8 @@ def _add_train_pmgt_ncf(sub) -> None:
     a("--fusion-strategy", choices=("auto", "project_tables", "gather_rows"),
       default="auto")
     a("--feat-tables-dtype", choices=("float32", "bfloat16", "int8"),
-      default=None, help="feature table storage (only float32 is ported)")
+      default=None,
+      help="feature table storage (default: bfloat16 with --mp-enabled, else float32)")
     a("--shard-feat-tables", action="store_true", help="(not ported)")
     a("--shard-graph-tables", action="store_true", help="(not ported)")
     a("--topk", type=int, default=100,
@@ -312,7 +320,7 @@ def _train(train_name: str, ns: argparse.Namespace):
     if multi_host:
         raise NotImplementedError(
             f"multi-host options {sorted(multi_host)} are not ported to "
-            "pmgt_tpu_torch yet (ROADMAP.md §1 item 6, multi-GPU)"
+            "pmgt_tpu_torch yet (ROADMAP.md §1, multi-GPU)"
         )
     return train_model(train_name, args, device=ns.device)
 
@@ -358,7 +366,10 @@ def train_model(train_name: str, args: TrainArgs, device: str = "cuda"):
             logger.info("Inference mode")
             out = trainer.inference(args, ctx, registry, run)
         else:
-            if args.mode == "train":
+            if args.mode == "train" and args.profile_dir:
+                _profiled(lambda: trainer.train(args, ctx, registry, run),
+                          args.profile_dir, device)
+            elif args.mode == "train":
                 trainer.train(args, ctx, registry, run)
             else:
                 logger.info("Eval mode")
@@ -373,6 +384,21 @@ def train_model(train_name: str, args: TrainArgs, device: str = "cuda"):
     if owns_status and run.status != "INTERRUPTED":
         registry.set_status(run, "FINISHED")
     return out
+
+
+def _profiled(fn, profile_dir: str, device: str) -> None:
+    """``fn()`` under ``torch.profiler`` (host, and the card on a CUDA
+    device); the trace goes to ``profile_dir`` as a
+    ``*.pt.trace.json`` file, also when ``fn`` raises."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if str(device).startswith("cuda"):
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(profile_dir)):
+        fn()
+    logger.info("profiler trace written to %s", profile_dir)
 
 
 def _runs(ns: argparse.Namespace) -> None:

@@ -12,3 +12,4 @@ from pmgt_tpu_torch.models.pmgt import (  # noqa: F401
     gsr_loss_fn,
 )
 from pmgt_tpu_torch.models.pmgt_ncf import PMGT_NCF  # noqa: F401
+from pmgt_tpu_torch.models.pruning import prune_attention_heads  # noqa: F401

@@ -7,15 +7,19 @@ arrays, ``variables["params"]`` of the flax module) and returns a
 - Dense ``kernel [in, out]`` → ``weight [out, in]``; ``bias`` → ``bias``
 - LayerNorm ``scale`` / ``bias`` → ``weight`` / ``bias``
 - Embed ``embedding`` → ``weight``
-- ``position_embeddings`` / ``role_embeddings`` and DCN's cross
-  ``weight [H, 1]`` as they are
+- ``position_embeddings`` / ``role_embeddings``, the relative-position
+  ``distance_embedding`` of each layer and DCN's cross ``weight [H, 1]``
+  as they are
+
+A tree from ``nn.remat`` layers (gradient checkpointing) has the same
+names, so it converts the same way.
 
 ``params_from_flax`` (``PMGTForPreTraining``), ``ncf_params_from_flax``
 (``NCF``), ``dcn_params_from_flax`` (``DCN``) and
 ``pmgt_ncf_params_from_flax`` (``PMGT_NCF``, whose ``bert`` subtree maps
 as the pre-training model's) raise on a missing or an extra leaf, so a
-tree of another architecture (relative positions, pruned heads, another
-variant) cannot load half-way.
+tree of another architecture cannot load half-way (a pruned tree loads
+into a model built from the pruned config).
 """
 from __future__ import annotations
 
@@ -78,6 +82,9 @@ def _bert(mapping: _Mapping, flat) -> int:
     """The ``bert`` subtree (``PMGTModel``); returns its modality count."""
     n_feats = len(_indices(flat, r"bert/embeddings/feat_linear_(\d+)/"))
     n_layers = len(_indices(flat, r"bert/layer_(\d+)/"))
+    # relative positions: a distance embedding in every layer (judged by
+    # the first layer, so a stray leaf elsewhere is reported as extra)
+    relative = "bert/layer_0/self_attention/distance_embedding" in flat
     emb = "bert/embeddings"
     for i in range(n_feats):
         mapping.dense(f"{emb}/feat_linear_{i}", f"bert.embeddings.feat_linear.{i}")
@@ -91,6 +98,9 @@ def _bert(mapping: _Mapping, flat) -> int:
                           f"bert.layers.{i}.{sub.replace('/', '.')}")
         for sub in _LAYER_NORMS:
             mapping.norm(f"bert/layer_{i}/{sub}", f"bert.layers.{i}.{sub}")
+        if relative:
+            mapping[f"bert/layer_{i}/self_attention/distance_embedding"] = (
+                f"bert.layers.{i}.self_attention.distance_embedding", False)
     return n_feats
 
 

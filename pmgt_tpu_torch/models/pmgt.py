@@ -9,7 +9,28 @@ outputs stay batch-major [B, S, H].
 ``config.attention_impl`` picks the attention route: ``"pallas"`` goes
 through ``ops.dual_attention.dual_attention_sm`` (the hand-written CUDA
 kernel on a GPU, its plain version on the CPU); ``"xla"`` runs the plain
-batch-major formulation ``dual_attention_plain``.
+batch-major formulation ``dual_attention_plain``. As in the JAX package, a
+layer with relative positions, a ``head_mask`` or ``output_attentions``
+takes the plain formulation on either route: the kernels cover the
+absolute-position attention only.
+
+``config.dtype`` is the compute policy. Parameters stay float32; under
+``"bfloat16"`` every dense layer casts its input, kernel and bias to bf16
+(flax's ``Dense(dtype=...)``), the position, role and distance embeddings
+and the additive mask (``finfo(bf16).min``) are bf16, and the stream, the
+attention and the heads run in bf16. LayerNorm is flax's: statistics in
+f32 by E[x²] - E[x]², the normalisation in f32, the output in bf16;
+softmax and GELU round their steps as JAX's bf16 evaluation does. The
+attention kernels take bf16 q/k/v/c and compute in f32. The GSR loss is
+f32 (its labels promote it) and NFR accumulates each row's squared error
+in f32. Gradients reach the f32 parameters in f32.
+
+``config.gradient_checkpointing`` recomputes each layer in the backward
+(``torch.utils.checkpoint``, non-reentrant). The recompute replays the
+layer's dropout draws from a generator restored to the state the layer
+entered with, so it sees the first pass's masks, and the caller's
+generator leaves the layer where a forward without checkpointing leaves
+it.
 
 Training (``deterministic=False``) needs a ``torch.Generator`` on the
 model's device; there is no global RNG and no ``nn.Dropout``. One forward
@@ -18,9 +39,7 @@ random ids, mask uniforms), then the embeddings' dropout mask, then per
 layer the attention keep masks m1 and m2 (``draw_keep_masks``, one pair
 for both attention routes), the ``attention_output`` dropout mask and the
 ``output`` dropout mask. Dropout is flax's: ``where(u < keep, x / keep,
-0)``. Gradient checkpointing, the bf16 compute policy, relative-position
-attention, ``head_mask`` and ``output_attentions`` raise
-``NotImplementedError``.
+0)``.
 """
 from __future__ import annotations
 
@@ -29,6 +48,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pmgt_tpu_torch.core.config import PMGTConfig
 from pmgt_tpu_torch.core.quant import dense_table, table_rows
@@ -36,11 +56,66 @@ from pmgt_tpu_torch.graph.container import NUM_SPECIAL_NODES
 from pmgt_tpu_torch.ops.dual_attention import draw_keep_masks, dual_attention_sm
 from pmgt_tpu_torch.sampling.pairs import PretrainBatch
 
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+RELATIVE_POSITIONS = ("relative_key", "relative_key_query")
+_SQRT_HALF_BF16 = float(torch.tensor(0.5**0.5, dtype=torch.bfloat16))
+
+
+def compute_dtype(cfg: PMGTConfig) -> torch.dtype:
+    """The torch dtype of ``cfg.dtype`` (float32 or bfloat16)."""
+    if cfg.dtype not in _DTYPES:
+        raise ValueError(f"compute dtype must be float32 or bfloat16, got {cfg.dtype!r}")
+    return _DTYPES[cfg.dtype]
+
 
 def _additive_mask(attention_mask: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """(1 - mask) * finfo(dtype).min — HF's extended attention mask."""
     big_neg = torch.finfo(dtype).min
     return ((1.0 - attention_mask) * big_neg).to(dtype)
+
+
+def linear(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``Dense(dtype=dtype)``: input, kernel and bias cast to
+    ``dtype`` (the parameters stay float32)."""
+    return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
+
+
+def layer_norm(norm: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``LayerNorm(dtype=dtype)``. In float32 torch's kernel; in bf16
+    flax's own arithmetic: mean and mean square in f32, variance
+    max(E[x²] - E[x]², 0), (x - mean) · (rsqrt(var + eps) · scale) + bias
+    in f32, then one rounding to ``dtype``."""
+    if dtype == torch.float32:
+        return norm(x.to(dtype))
+    xf = x.to(torch.float32)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+    y = (xf - mean) * (torch.rsqrt(var + norm.eps) * norm.weight) + norm.bias
+    return y.to(dtype)
+
+
+def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``jax.nn.softmax`` in ``x``'s dtype. In bf16 its steps round as
+    JAX's do: exp(x − max), its sum, the quotient (torch's fused bf16
+    softmax rounds only once)."""
+    if x.dtype != torch.bfloat16:
+        return torch.softmax(x, dim=dim)
+    e = torch.exp(x - torch.amax(x, dim=dim, keepdim=True))
+    return e / torch.sum(e, dim=dim, keepdim=True)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact-erf GELU, ``jax.nn.gelu(approximate=False)``: 0.5·x·erfc(−x·√½).
+    In bf16 as XLA evaluates it: √½ rounded to bf16, erfc taken in f32 and
+    rounded, the product in bf16."""
+    if x.dtype != torch.bfloat16:
+        return F.gelu(x, approximate="none")
+    return (0.5 * x) * torch.special.erfc(-x.float() * _SQRT_HALF_BF16).to(x.dtype)
+
+
+def _sqrt_d(d: int, dtype: torch.dtype) -> float:
+    """√d rounded to ``dtype`` (JAX's ``jnp.sqrt(jnp.asarray(d, dtype))``)."""
+    return float(torch.tensor(float(d), dtype=dtype).sqrt())
 
 
 def dropout(
@@ -72,6 +147,7 @@ class PMGTEmbeddings(nn.Module):
     def __init__(self, cfg: PMGTConfig):
         super().__init__()
         self.config = cfg
+        self.dtype = compute_dtype(cfg)
         self.feat_linear = nn.ModuleList(
             nn.Linear(f, cfg.hidden_size) for f in cfg.feat_hidden_sizes
         )
@@ -84,10 +160,12 @@ class PMGTEmbeddings(nn.Module):
         self.role_embeddings = nn.Parameter(torch.zeros(2, cfg.hidden_size))
         self.norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
-    def project(self, feat_tables: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """[N+2, F_m] tables → [N+2, H] projected tables."""
+    def project(self, feat_tables) -> List[torch.Tensor]:
+        """[N+2, F_m] tables (plain or int8) → [N+2, H] projected tables in
+        the compute dtype."""
+        dt = self.dtype
         return [
-            lin(dense_table(t, torch.float32))
+            linear(lin, dense_table(t, dt), dt)
             for lin, t in zip(self.feat_linear, feat_tables)
         ]
 
@@ -98,26 +176,22 @@ class PMGTEmbeddings(nn.Module):
         projected: bool = False,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
+        dt = self.dtype
         seq_len = feat_embeds[0].shape[1]
         if projected:
-            proj = [x.to(torch.float32) for x in feat_embeds]
+            proj = [x.to(dt) for x in feat_embeds]
         else:
-            proj = [
-                lin(x.to(torch.float32))
-                for lin, x in zip(self.feat_linear, feat_embeds)
-            ]
+            proj = [linear(lin, x, dt) for lin, x in zip(self.feat_linear, feat_embeds)]
         concat = torch.cat(proj, dim=-1)
-        scores = torch.softmax(
-            self.modality_attention(torch.tanh(concat)), dim=-1
-        )
+        scores = softmax(linear(self.modality_attention, torch.tanh(concat), dt))
         stacked = torch.stack(proj, dim=2)  # [B, S, M, H]
         fused = torch.sum(scores[..., None] * stacked, dim=2)
 
-        pos = self.position_embeddings[:seq_len]
+        pos = self.position_embeddings[:seq_len].to(dt)
         role_ids = torch.ones(seq_len, dtype=torch.int64, device=pos.device)
         role_ids[0] = 0
-        role = self.role_embeddings[role_ids]
-        embeds = self.norm(fused + pos[None] + role[None])
+        role = self.role_embeddings[role_ids].to(dt)
+        embeds = layer_norm(self.norm, fused + pos[None] + role[None], dt)
         return dropout(
             embeds, self.config.hidden_dropout_prob, deterministic, generator
         )
@@ -132,32 +206,48 @@ def dual_attention_plain(
     beta: float,
     keep_masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     keep: float = 1.0,
-) -> torch.Tensor:
-    """Plain batch-major dual attention (the math of the JAX package's
-    ``dual_attention_xla``). Inputs [B, h, S, d], output
-    (β·softmax(1 − cos(c, c) + I + M) + (1 − β)·softmax(qkᵀ/√d + M))·v.
-    ``keep_masks`` (m1, m2), bool [B, h, S, S], apply attention dropout as
-    ``where(m, P / keep, 0)``."""
+    scores2_bias: Optional[torch.Tensor] = None,
+    head_mask: Optional[torch.Tensor] = None,
+    return_probs: bool = False,
+):
+    """Plain batch-major dual attention (the JAX package's
+    ``dual_attention_xla``), math in the inputs' dtype. Inputs [B, h, S,
+    d], output (β·softmax(1 − cos(c, c) + I + M) + (1 − β)·softmax(qkᵀ/√d
+    + bias + M))·v. ``keep_masks`` (m1, m2), bool [B, h, S, S], apply
+    attention dropout as ``where(m, P / keep, 0)``; ``scores2_bias`` (the
+    relative-position term, [B, h, S, S]) biases the qk distribution only;
+    ``head_mask`` ([h] or broadcastable) scales both distributions after
+    dropout. With ``return_probs`` the blended probs are returned too."""
     s, d = query.shape[-2], query.shape[-1]
+    dtype = query.dtype
     ctx_norm = torch.linalg.norm(ctx, dim=-1, keepdim=True)  # [B,h,S,1]
     norm_outer = ctx_norm @ ctx_norm.transpose(-1, -2)
     cos = (ctx @ ctx.transpose(-1, -2)) / torch.clamp(norm_outer, min=1e-12)
-    eye = torch.eye(s, dtype=query.dtype, device=query.device)
+    eye = torch.eye(s, dtype=dtype, device=query.device)
     scores1 = 1.0 - cos + eye
     if additive_mask is not None:
         scores1 = scores1 + additive_mask
-    probs1 = torch.softmax(scores1, dim=-1)
+    probs1 = softmax(scores1)
 
-    scores2 = (query @ key.transpose(-1, -2)) / (float(d) ** 0.5)
+    scores2 = (query @ key.transpose(-1, -2)) / _sqrt_d(d, dtype)
+    if scores2_bias is not None:
+        scores2 = scores2 + scores2_bias
     if additive_mask is not None:
         scores2 = scores2 + additive_mask
-    probs2 = torch.softmax(scores2, dim=-1)
+    probs2 = softmax(scores2)
     if keep_masks is not None:
         zero = torch.zeros((), dtype=probs1.dtype, device=probs1.device)
         probs1 = torch.where(keep_masks[0], probs1 / keep, zero)
         probs2 = torch.where(keep_masks[1], probs2 / keep, zero)
+    if head_mask is not None:
+        hm = head_mask.to(dtype)
+        if hm.ndim == 1:
+            hm = hm[None, :, None, None]
+        probs1 = probs1 * hm
+        probs2 = probs2 * hm
     probs = beta * probs1 + (1.0 - beta) * probs2
-    return probs @ value
+    out = probs @ value
+    return (out, probs) if return_probs else out
 
 
 class PMGTSelfAttention(nn.Module):
@@ -166,12 +256,39 @@ class PMGTSelfAttention(nn.Module):
     def __init__(self, cfg: PMGTConfig):
         super().__init__()
         self.config = cfg
+        self.dtype = compute_dtype(cfg)
         if cfg.attention_impl not in ("xla", "pallas"):
             raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
+        if cfg.position_embedding_type not in ("absolute", *RELATIVE_POSITIONS):
+            raise ValueError(
+                f"unknown position_embedding_type {cfg.position_embedding_type!r}"
+            )
         self.query = nn.Linear(cfg.hidden_size, cfg.all_head_size)
         self.key = nn.Linear(cfg.hidden_size, cfg.all_head_size)
         self.value = nn.Linear(cfg.hidden_size, cfg.all_head_size)
         self.ctx_attention = nn.Linear(cfg.hidden_size, cfg.all_head_size)
+        if cfg.position_embedding_type in RELATIVE_POSITIONS:
+            self.distance_embedding = nn.Parameter(
+                torch.zeros(2 * cfg.max_position_embeddings - 1, cfg.head_dim)
+            )
+
+    def _relative_bias(self, query, key, s, b) -> torch.Tensor:
+        """The relative-position term of the qk scores, [B, h, S, S],
+        pre-divided by √d: rel[l, r] = q_l·E[l−r] (+ k_r·E[l−r] for
+        ``relative_key_query``)."""
+        cfg = self.config
+        h, d = cfg.num_attention_heads, cfg.head_dim
+        pos = torch.arange(s, device=query.device)
+        distance = pos[:, None] - pos[None, :]
+        rel = self.distance_embedding.to(self.dtype)[
+            distance + cfg.max_position_embeddings - 1
+        ]  # [S, S, d]
+        rel_scores = torch.einsum("lbhd,lrd->bhlr", query.reshape(s, b, h, d), rel)
+        if cfg.position_embedding_type == "relative_key_query":
+            rel_scores = rel_scores + torch.einsum(
+                "rbhd,lrd->bhlr", key.reshape(s, b, h, d), rel
+            )
+        return rel_scores / _sqrt_d(d, self.dtype)
 
     def forward(
         self,
@@ -179,14 +296,19 @@ class PMGTSelfAttention(nn.Module):
         additive_bs: torch.Tensor,  # [B, S]
         deterministic: bool = True,
         generator: Optional[torch.Generator] = None,
-    ) -> torch.Tensor:
+        head_mask: Optional[torch.Tensor] = None,
+        output_attentions: bool = False,
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(output [S, B, h·d], blended probs [B, h, S, S] with
+        ``output_attentions``, else None)."""
         cfg = self.config
+        dt = self.dtype
         s, b, _ = hidden_sm.shape
         h, d = cfg.num_attention_heads, cfg.head_dim
         flat = hidden_sm.reshape(s * b, hidden_sm.shape[-1])
         # [S*B, h*d] rows stay seq-major: the [S, B*h, d] view is free.
         query, key, value, ctx = (
-            lin(flat)
+            linear(lin, flat, dt)
             for lin in (self.query, self.key, self.value, self.ctx_attention)
         )
         rate = cfg.attention_probs_dropout_prob
@@ -197,23 +319,31 @@ class PMGTSelfAttention(nn.Module):
         m1 = m2 = None
         if use_dropout:
             m1, m2 = draw_keep_masks(s, b * h, keep, generator)
-        if cfg.attention_impl == "pallas":
+        bias = None
+        if cfg.position_embedding_type in RELATIVE_POSITIONS:
+            bias = self._relative_bias(query, key, s, b)
+        if (cfg.attention_impl == "pallas" and bias is None and head_mask is None
+                and not output_attentions):
             fold = lambda x: x.reshape(s, b * h, d)  # noqa: E731
             mask_nb = additive_bs[:, None, :].expand(b, h, s).reshape(b * h, s)
             out = dual_attention_sm(
                 fold(query), fold(key), fold(value), fold(ctx), mask_nb,
                 m1, m2, cfg.beta, keep, use_dropout,
             )
-            return out.reshape(s, b, cfg.all_head_size)
+            return out.reshape(s, b, cfg.all_head_size), None
         to_bm = lambda x: x.reshape(s, b, h, -1).permute(1, 2, 0, 3)  # noqa: E731
         out = dual_attention_plain(
             to_bm(query), to_bm(key), to_bm(value), to_bm(ctx),
             additive_bs[:, None, None, :], beta=cfg.beta,
             keep_masks=(to_bm(m1), to_bm(m2)) if use_dropout else None,
-            keep=keep,
+            keep=keep, scores2_bias=bias, head_mask=head_mask,
+            return_probs=output_attentions,
         )
+        probs = None
+        if output_attentions:
+            out, probs = out
         # [B, h, S, d] -> [S, B, h*d]
-        return out.permute(2, 0, 1, 3).reshape(s, b, cfg.all_head_size)
+        return out.permute(2, 0, 1, 3).reshape(s, b, cfg.all_head_size), probs
 
 
 class PMGTLayer(nn.Module):
@@ -223,6 +353,7 @@ class PMGTLayer(nn.Module):
     def __init__(self, cfg: PMGTConfig):
         super().__init__()
         self.config = cfg
+        self.dtype = compute_dtype(cfg)
         self.self_attention = PMGTSelfAttention(cfg)
         self.attention_output = nn.Linear(cfg.all_head_size, cfg.hidden_size)
         self.attention_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
@@ -236,19 +367,43 @@ class PMGTLayer(nn.Module):
         additive_bs: torch.Tensor,
         deterministic: bool = True,
         generator: Optional[torch.Generator] = None,
-    ) -> torch.Tensor:
+        head_mask: Optional[torch.Tensor] = None,
+        output_attentions: bool = False,
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        dt = self.dtype
         rate = self.config.hidden_dropout_prob
-        attn = self.self_attention(hidden, additive_bs, deterministic, generator)
-        s, b, _ = attn.shape
-        attn = self.attention_output(attn.reshape(s * b, attn.shape[-1]))
-        attn = dropout(attn, rate, deterministic, generator)
-        hidden = self.attention_norm(
-            attn + hidden.reshape(s * b, hidden.shape[-1])
+        attn, probs = self.self_attention(
+            hidden, additive_bs, deterministic, generator, head_mask, output_attentions
         )
-        inter = F.gelu(self.intermediate(hidden), approximate="none")
-        out = dropout(self.output(inter), rate, deterministic, generator)
-        out = self.output_norm(out + hidden)
-        return out.reshape(s, b, -1)
+        s, b, _ = attn.shape
+        attn = linear(self.attention_output, attn.reshape(s * b, attn.shape[-1]), dt)
+        attn = dropout(attn, rate, deterministic, generator)
+        hidden = layer_norm(
+            self.attention_norm, attn + hidden.reshape(s * b, hidden.shape[-1]), dt
+        )
+        inter = gelu(linear(self.intermediate, hidden, dt))
+        out = dropout(linear(self.output, inter, dt), rate, deterministic, generator)
+        out = layer_norm(self.output_norm, out + hidden, dt)
+        return out.reshape(s, b, -1), probs
+
+
+def _checkpointed(layer: PMGTLayer, hidden, additive_bs, deterministic, generator, *rest):
+    """``layer(hidden, ...)`` recomputed in the backward. The first pass
+    draws from ``generator`` itself; the recompute from a fresh generator
+    set to the state the layer entered with, so it replays the same
+    dropout draws."""
+    entry = generator.get_state() if generator is not None else None
+    first = [True]
+
+    def run(h):
+        gen = generator
+        if not first[0] and generator is not None:
+            gen = torch.Generator(device=generator.device)
+            gen.set_state(entry)
+        first[0] = False
+        return layer(h, additive_bs, deterministic, gen, *rest)
+
+    return checkpoint(run, hidden, use_reentrant=False, preserve_rng_state=False)
 
 
 class PMGTModel(nn.Module):
@@ -256,26 +411,14 @@ class PMGTModel(nn.Module):
 
     def __init__(self, cfg: PMGTConfig):
         super().__init__()
-        if cfg.dtype != "float32":
-            raise NotImplementedError(
-                f"compute dtype {cfg.dtype!r}: only float32 is ported yet"
-            )
-        if cfg.position_embedding_type != "absolute":
-            raise NotImplementedError(
-                f"position_embedding_type {cfg.position_embedding_type!r}: "
-                "only 'absolute' is ported yet"
-            )
-        if cfg.gradient_checkpointing:
-            raise NotImplementedError("gradient checkpointing is not ported yet")
         self.config = cfg
+        self.dtype = compute_dtype(cfg)
         self.embeddings = PMGTEmbeddings(cfg)
         self.layers = nn.ModuleList(
             PMGTLayer(cfg) for _ in range(cfg.num_hidden_layers)
         )
 
-    def project_tables(
-        self, feat_tables: Sequence[torch.Tensor]
-    ) -> List[torch.Tensor]:
+    def project_tables(self, feat_tables) -> List[torch.Tensor]:
         return self.embeddings.project(feat_tables)
 
     def forward(
@@ -288,14 +431,14 @@ class PMGTModel(nn.Module):
         output_hidden_states: bool = False,
         output_attentions: bool = False,
         generator: Optional[torch.Generator] = None,
-    ) -> torch.Tensor:
-        """Returns the last hidden state [B, S, H]. ``deterministic=False``
-        (dropout) needs ``generator``."""
-        if head_mask is not None or output_hidden_states or output_attentions:
-            raise NotImplementedError(
-                "head_mask / output_hidden_states / output_attentions are "
-                "not ported yet"
-            )
+    ):
+        """Returns the last hidden state [B, S, H] in the compute dtype.
+        With ``output_hidden_states`` / ``output_attentions`` it returns
+        ``(last_hidden_state, aux)``: ``aux["hidden_states"]`` holds the
+        embeddings' output and every layer's [B, S, H];
+        ``aux["attentions"]`` every layer's blended probs [B, h, S, S].
+        ``head_mask`` is [num_layers, h] or [h] (every layer).
+        ``deterministic=False`` (dropout) needs ``generator``."""
         if not deterministic and generator is None:
             raise ValueError("deterministic=False needs a torch.Generator")
         b, s = feat_embeds[0].shape[:2]
@@ -303,12 +446,36 @@ class PMGTModel(nn.Module):
             attention_mask = torch.ones(
                 (b, s), dtype=torch.float32, device=feat_embeds[0].device
             )
-        additive_bs = _additive_mask(attention_mask, torch.float32)  # [B, S]
+        additive_bs = _additive_mask(attention_mask, self.dtype)  # [B, S]
         hidden = self.embeddings(feat_embeds, deterministic, projected, generator)
+        all_hidden = [hidden] if output_hidden_states else None
+        all_attn = [] if output_attentions else None
         hidden = hidden.transpose(0, 1)  # seq-major [S, B, H]
-        for layer in self.layers:
-            hidden = layer(hidden, additive_bs, deterministic, generator)
-        return hidden.transpose(0, 1)
+        remat = self.config.gradient_checkpointing and torch.is_grad_enabled()
+        if head_mask is not None:
+            head_mask = torch.as_tensor(head_mask, device=hidden.device)
+        for i, layer in enumerate(self.layers):
+            layer_hm = None
+            if head_mask is not None:
+                layer_hm = head_mask[i] if head_mask.ndim > 1 else head_mask
+            args = (additive_bs, deterministic, generator, layer_hm, output_attentions)
+            if remat:
+                hidden, probs = _checkpointed(layer, hidden, *args)
+            else:
+                hidden, probs = layer(hidden, *args)
+            if output_hidden_states:
+                all_hidden.append(hidden.transpose(0, 1))
+            if output_attentions:
+                all_attn.append(probs)
+        hidden = hidden.transpose(0, 1)
+        if not (output_hidden_states or output_attentions):
+            return hidden
+        aux = {}
+        if output_hidden_states:
+            aux["hidden_states"] = tuple(all_hidden)
+        if output_attentions:
+            aux["attentions"] = tuple(all_attn)
+        return hidden, aux
 
 
 def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -362,7 +529,7 @@ class PretrainOutput(NamedTuple):
 class PMGTForPreTraining(nn.Module):
     """PMGT with the GSR and NFR pre-training heads. The frozen feature
     tables are inputs, not parameters: pass ``feat_tables`` (list of
-    [N+2, F_m] tensors) to every call."""
+    [N+2, F_m] tensors or ``QuantizedTable``s) to every call."""
 
     def __init__(
         self,
@@ -401,6 +568,9 @@ class PMGTForPreTraining(nn.Module):
                 mod.bias.zero_()
         normal_(self.bert.embeddings.position_embeddings)
         normal_(self.bert.embeddings.role_embeddings)
+        for layer in self.bert.layers:
+            if hasattr(layer.self_attention, "distance_embedding"):
+                normal_(layer.self_attention.distance_embedding)
 
     def project_tables(
         self, feat_tables: Sequence[torch.Tensor]
@@ -422,7 +592,7 @@ class PMGTForPreTraining(nn.Module):
         """Encoder pass over [B, S] node-id sequences → [B, S, H]."""
         if self.config.fusion_strategy == "gather_rows":
             feat_embeds = [
-                table_rows(t, node_ids, torch.float32) for t in feat_tables
+                table_rows(t, node_ids, self.bert.dtype) for t in feat_tables
             ]
             projected = False
         else:
@@ -533,7 +703,7 @@ class PMGTForPreTraining(nn.Module):
         count = torch.sum(pos_mask)
         losses = []
         for proj, table in zip(self.nfr_projections, feat_tables):
-            pred = proj(ctx_hidden)  # [B, S-1, F]
+            pred = linear(proj, ctx_hidden, self.bert.dtype)  # [B, S-1, F]
             target = table_rows(table, target_ids, pred.dtype)
             sq = torch.sum((pred - target) ** 2, dim=-1, dtype=torch.float32)
             denom = torch.clamp(count * pred.shape[-1], min=1.0)

@@ -8,7 +8,10 @@ embedding; ``NeuMF-end`` adds a GMF branch indexed by the raw item id,
 clipped to the table (never node id - 2, which would send a graph-absent
 item, node 0, to another item's row). The encoder is the port's
 ``PMGTModel``, so on the card its attention runs K1 forward and K2
-backward (``attention_impl="pallas"``).
+backward (``attention_impl="pallas"``). It runs in the config's compute
+dtype; under bf16 its CLS row meets the f32 user embedding in a
+concatenation that promotes to f32, as JAX's does, so the towers and the
+logits stay f32.
 
 ``init_weights``: the encoder as ``PMGTForPreTraining.init_weights`` (flax
 normal(initializer_range) kernels and embeddings, zero biases, unit
@@ -103,7 +106,7 @@ class PMGT_NCF(nn.Module):
     ) -> torch.Tensor:
         """Logits [B]."""
         if self.config.fusion_strategy == "gather_rows":
-            feats = [table_rows(t, item_node_ids, torch.float32) for t in feat_tables]
+            feats = [table_rows(t, item_node_ids, self.bert.dtype) for t in feat_tables]
             projected = False
         else:
             if proj_tables is None:

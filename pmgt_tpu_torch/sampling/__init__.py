@@ -5,6 +5,7 @@ from pmgt_tpu_torch.sampling.mcn import (  # noqa: F401
 )
 from pmgt_tpu_torch.sampling.pairs import (  # noqa: F401
     PretrainBatch,
+    make_pretrain_batch,
     make_pretrain_batch_cached,
     sample_all_contexts,
     sample_all_pairs,

@@ -14,7 +14,7 @@ tests, from explicit draws: ``u_pos`` [B, max_deg] uniforms and ``rank``
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -195,4 +195,47 @@ def make_pretrain_batch_cached(
         pair_mask=ctx_mask[pair_nodes],
         labels=all_labels[targets],
         pair_valid=all_valid[targets],
+    )
+
+
+def make_pretrain_batch(
+    graph: DeviceGraph,
+    targets: torch.Tensor,
+    cfg: SamplingConfig,
+    is_training: bool = True,
+    generators: Optional[Sequence[torch.Generator]] = None,
+    draws: Optional[Tuple] = None,
+) -> PretrainBatch:
+    """A batch with a fresh context for the target and for every pair node
+    (per-step sampling, the reference's exact behaviour). Three streams, as
+    JAX's three keys: ``generators`` = (target contexts, pairs, pair
+    contexts), or ``draws`` = (the target contexts' per-hop uniforms,
+    (u_pos, rank) of ``sample_pairs``, the pair contexts' per-hop
+    uniforms) for the exact parity tests."""
+    if draws is None:
+        if generators is None or len(generators) != 3:
+            raise ValueError("make_pretrain_batch needs three generators or the draws")
+        g_ctx, g_pairs, g_pair_ctx = generators
+        ctx_draws = pair_ctx_draws = None
+        u_pos = rank = None
+    else:
+        g_ctx = g_pairs = g_pair_ctx = None
+        ctx_draws, (u_pos, rank), pair_ctx_draws = draws
+    batch = targets.shape[0]
+    target_ids, target_mask = sample_context(graph, targets, cfg, g_ctx, ctx_draws)
+    pair_nodes, labels, pair_valid = sample_pairs(
+        graph, targets, cfg, is_training, g_pairs, u_pos=u_pos, rank=rank
+    )
+    p = pair_nodes.shape[1]
+    pair_ids, pair_mask = sample_context(
+        graph, pair_nodes.reshape(-1), cfg, g_pair_ctx, pair_ctx_draws
+    )
+    seq = target_ids.shape[1]
+    return PretrainBatch(
+        target_ids=target_ids,
+        target_mask=target_mask,
+        pair_ids=pair_ids.reshape(batch, p, seq),
+        pair_mask=pair_mask.reshape(batch, p, seq),
+        labels=labels,
+        pair_valid=pair_valid,
     )

@@ -18,6 +18,9 @@ items (64 × 1024 by default), one encoder call each. The encoder runs the
 hand-written dual-attention kernels on the card (K1 forward, five launches
 a call; K2 backward, five a training step) and their plain versions on the
 CPU. Unlike the JAX task, gradients honour ``accumulation_step``.
+``mp_enabled`` runs the encoder in bf16 (``PMGTConfig.dtype``) with the
+feature tables stored in bf16 unless ``feat_tables_dtype`` says otherwise,
+as in the PMGT task.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from pmgt_tpu_torch.core.config import (
     TrainArgs,
     resolve_fusion_strategy,
 )
+from pmgt_tpu_torch.core.quant import prepare_feat_tables
 from pmgt_tpu_torch.data.artifacts import load_artifacts
 from pmgt_tpu_torch.graph.container import NUM_SPECIAL_NODES
 from pmgt_tpu_torch.models.pmgt_ncf import PMGT_NCF
@@ -50,7 +54,7 @@ from pmgt_tpu_torch.tasks.interaction_base import (  # noqa: F401
     test,
     train,
 )
-from pmgt_tpu_torch.tasks.pmgt_task import reject_unported_options
+from pmgt_tpu_torch.tasks.pmgt_task import feat_tables_dtype, reject_unported_options
 
 logger = logging.getLogger("pmgt_tpu_torch")
 
@@ -112,8 +116,8 @@ class PMGTNCFTask(InteractionTaskBase):
         )
         self.model.init_weights(torch.Generator().manual_seed(int(args.seed)))
         self.graph = artifacts.graph.to(self.device)
-        self.feat_tables = [torch.as_tensor(np.asarray(t, np.float32), device=self.device)
-                            for t in artifacts.feat_init_embs]
+        self.feat_tables = prepare_feat_tables(artifacts.feat_init_embs,
+                                               feat_tables_dtype(args), self.device)
         self.item_to_node = torch.as_tensor(item_to_node_map(artifacts), dtype=torch.int64,
                                             device=self.device)
         self.eval_chunk_users = max(args.test_batch_size // 64, 1)

@@ -10,16 +10,26 @@ and export are then pure gathers plus encoder passes over chunks of
 ``test_batch_size`` targets, so their metrics are a function of the
 parameters alone.
 
-Training runs the JAX package's cached mode: at each epoch start
-(``on_epoch_start``) one context per node and one training pair table
-(P = ``max_total_samples``) are drawn into a single evicting slot. An
-epoch walks the shuffled schedule (``_epoch_schedule``) in full batches;
-each step gets its own generator, seeded ``(seed * 7_919 + step) %
-2**32``, which draws the NFR corruption and then the dropout masks
+Training runs either of the JAX package's modes. Cached (the default):
+at each epoch start (``on_epoch_start``) one context per node and one
+training pair table (P = ``max_total_samples``) are drawn into a single
+evicting slot, and a step gathers its batch from them. Per-step sampling
+(``ctx_cache=False``, ``--no-ctx-cache``): each step draws a fresh context
+for every target and every pair node and fresh pairs
+(``make_pretrain_batch``) from three generators seeded from the step's
+seed; evaluation and export keep their fixed per-phase draws in both
+modes. An epoch walks the shuffled schedule (``_epoch_schedule``) in full
+batches; each step gets its own generator, seeded ``(seed * 7_919 + step)
+% 2**32``, which draws the NFR corruption and then the dropout masks
 (``models/pmgt.py``) for each micro-batch in turn. Gradients are the mean
 over ``accumulation_step`` micro-batches; AdamW, the schedule and the clip
 come from ``train/optim.py``. ``train_epoch`` returns the per-step losses
 as a device tensor and never waits on the device.
+
+``mp_enabled`` is the bf16 compute policy (``PMGTConfig.dtype =
+"bfloat16"``, f32 parameters); the frozen feature tables are stored as
+``feat_tables_dtype`` says, bf16 by default under the policy, else f32
+(``core/quant.prepare_feat_tables``; int8 is per-row quantized).
 
 The engine (``train/engine.fit``) checkpoints ``state_dict()`` (model,
 optimizer, step count) and on resume calls ``on_resume(global_step,
@@ -45,12 +55,14 @@ from pmgt_tpu_torch.core.config import (
     resolve_fusion_strategy,
 )
 from pmgt_tpu_torch.core.device import resolve_device
+from pmgt_tpu_torch.core.quant import prepare_feat_tables
 from pmgt_tpu_torch.data.artifacts import DatasetArtifacts, load_artifacts
 from pmgt_tpu_torch.data.split import train_test_split
 from pmgt_tpu_torch.graph.container import NUM_SPECIAL_NODES
 from pmgt_tpu_torch.metrics.ranking import roc_auc, stable_sigmoid
 from pmgt_tpu_torch.models.pmgt import PMGTForPreTraining
 from pmgt_tpu_torch.sampling.pairs import (
+    make_pretrain_batch,
     make_pretrain_batch_cached,
     sample_all_contexts,
     sample_all_pairs,
@@ -116,10 +128,7 @@ class PMGTTask:
                 f"train_batch_size {args.train_batch_size} must be divisible "
                 f"by accumulation_step {args.accumulation_step}"
             )
-        if not extra.get("ctx_cache", True):
-            raise NotImplementedError(
-                "per-step sampling (ctx_cache=False) is not ported yet"
-            )
+        self.use_ctx_cache = bool(extra.get("ctx_cache", True))
 
         feat_dims = tuple(int(e.shape[-1]) for e in artifacts.feat_init_embs)
         self.config = PMGTConfig(
@@ -168,10 +177,9 @@ class PMGTTask:
         )
 
         self.graph = artifacts.graph.to(self.device)
-        self.feat_tables = [
-            torch.as_tensor(np.asarray(t, np.float32), device=self.device)
-            for t in artifacts.feat_init_embs
-        ]
+        self.feat_tables = prepare_feat_tables(
+            artifacts.feat_init_embs, feat_tables_dtype(args), self.device
+        )
         # One fixed draw per phase tag, kept for the task's lifetime.
         self._phase_ctx_cache: Dict[Tuple, PhaseCtx] = {}
         # The training draw: one evicting slot, retagged each epoch.
@@ -225,8 +233,9 @@ class PMGTTask:
     # ------------------------------------------------------------------
     def on_epoch_start(self, epoch: int) -> None:
         """Refresh the training draw: one fresh context and pair row per
-        node per epoch."""
-        self._get_ctx(("train", epoch))
+        node per epoch (nothing under per-step sampling)."""
+        if self.use_ctx_cache:
+            self._get_ctx(("train", epoch))
 
     def on_resume(self, global_step: int, start_epoch: int) -> None:
         """Continue the per-step generator seeds where an interrupted run
@@ -277,6 +286,18 @@ class PMGTTask:
             gen.manual_seed((self.args.seed * 7_919 + self._step_count) % 2**32)
             yield sched[i], gen
 
+    def sampling_generators(self, step_generator: torch.Generator):
+        """The three per-step sampling streams of ``--no-ctx-cache``
+        (target contexts, pairs, pair contexts), seeded by hashing the
+        step generator's seed with the stream's index."""
+        seed = step_generator.initial_seed()
+        gens = []
+        for i in range(3):
+            g = torch.Generator(device=self.device)
+            g.manual_seed(int(np.random.SeedSequence([seed, i]).generate_state(1)[0]))
+            gens.append(g)
+        return gens
+
     def accumulate_gradients(
         self, targets: torch.Tensor, generator: torch.Generator
     ) -> Dict[str, torch.Tensor]:
@@ -285,14 +306,21 @@ class PMGTTask:
         loss scaled by 1/accumulation_step, so ``.grad`` holds the mean of
         the micro-batch gradients. Returns the mean loss, gsr and nfr as
         device scalars."""
-        if self._train_ctx is None:
-            self._get_ctx(("train", 0))
-        ctx_ids, ctx_mask, pairs = self._train_ctx
+        if self.use_ctx_cache:
+            if self._train_ctx is None:
+                self._get_ctx(("train", 0))
+            ctx_ids, ctx_mask, pairs = self._train_ctx
+        else:
+            sampling = self.sampling_generators(generator)
         accum = self.args.accumulation_step
         self.optimizer.zero_grad()
         total = None
         for micro in targets.reshape(accum, -1):
-            batch = make_pretrain_batch_cached(ctx_ids, ctx_mask, micro, pairs)
+            if self.use_ctx_cache:
+                batch = make_pretrain_batch_cached(ctx_ids, ctx_mask, micro, pairs)
+            else:
+                batch = make_pretrain_batch(self.graph, micro, self.sampling, True,
+                                            generators=sampling)
             out = self.model(
                 self.feat_tables, batch, deterministic=False, compute_nfr=True,
                 generator=generator,
@@ -326,7 +354,9 @@ class PMGTTask:
     @torch.no_grad()
     def evaluate(self, split: str = "valid") -> Dict[str, float]:
         """Pair-AUC and mean BCE over the validation nodes' eval pairs
-        (one positive and one negative per target)."""
+        (one positive and one negative per target). Logits of the bf16
+        policy are bf16 values; the AUC and loss are taken from them in
+        f32 (the JAX task takes the sigmoid in bf16 numpy)."""
         ctx_ids, ctx_mask, pairs = self._get_ctx((split,))
         nodes = self.valid_nodes
         targets_c, sv_c = chunk_eval_inputs(
@@ -344,7 +374,7 @@ class PMGTTask:
                 proj_tables=proj,
             )
             sv = torch.as_tensor(sv, device=self.device)
-            logits_all.append(out.logits)
+            logits_all.append(out.logits.to(torch.float32))
             labels_all.append(batch.labels)
             valid_all.append(batch.pair_valid * sv[:, None])
         logits = torch.cat(logits_all).cpu().numpy().ravel()
@@ -398,18 +428,20 @@ class PMGTTask:
 # Options the JAX package has and the port does not yet: option → (the
 # values the port runs, the ROADMAP.md item that ports the rest). Any other
 # value raises NotImplementedError when a run starts (not under
-# --save-args).
+# --save-args). Only the multi-GPU options are left.
 UNPORTED_OPTIONS = {
-    "mp_enabled": ((False,), "§1 item 4, the bf16 compute policy"),
-    "position_embedding_type": (("absolute",), "§1 item 4, relative positions"),
-    "gradient_checkpointing": ((False,), "§1 item 2b, gradient checkpointing"),
-    "ctx_cache": ((True,), "§1 item 2b, per-step sampling"),
-    "shard_feat_tables": ((False,), "§1 item 6, multi-GPU sharding"),
-    "shard_graph_tables": ((False,), "§1 item 6, multi-GPU sharding"),
-    "feat_tables_dtype": ((None, "float32"), "§1 item 6, bf16 and int8 feature tables"),
-    "num_devices": ((None, 1), "§1 item 6, multi-GPU"),
-    "profile_dir": ((None,), "§1 item 6, --profile-dir"),
+    "shard_feat_tables": ((False,), "§1, multi-GPU: row-sharded tables"),
+    "shard_graph_tables": ((False,), "§1, multi-GPU: row-sharded tables"),
+    "num_devices": ((None, 1), "§1, multi-GPU"),
 }
+
+
+def feat_tables_dtype(args: TrainArgs) -> str:
+    """The feature tables' storage: ``--feat-tables-dtype``, else bf16
+    under the bf16 compute policy (the step would cast them to bf16
+    anyway), else f32."""
+    return str(args.extra.get("feat_tables_dtype")
+               or ("bfloat16" if args.mp_enabled else "float32"))
 
 
 def reject_unported_options(args: TrainArgs) -> None:

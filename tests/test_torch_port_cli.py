@@ -10,8 +10,10 @@ end to end on the CPU.
   status, checkpoints, metrics rows, the exported ``[num_nodes, hidden]``
   float32 ``.npy``, and eval leaving the run's status as it was (the JAX
   CLI relabels it).
-- Options whose feature is not ported raise ``NotImplementedError`` when a
-  run starts, and not under ``--save-args``.
+- The multi-GPU options raise ``NotImplementedError`` when a run starts,
+  and not under ``--save-args``; every other option runs (one CPU step
+  each), and the published training scripts' argument lists parse and
+  pass ``check_args``.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from click.testing import CliRunner
 from pmgt_tpu.cli import data_cmds as _jax_data_cmds  # noqa: F401  (registers make-synthetic)
 from pmgt_tpu.cli.main import cli as jax_cli
 from pmgt_tpu.core.config import TrainArgs as JTrainArgs
-from pmgt_tpu_torch.cli.main import main
+from pmgt_tpu_torch.cli.main import _make_args, build_parser, main
 from pmgt_tpu_torch.core.config import TrainArgs
 from pmgt_tpu_torch.data.artifacts import load_artifacts
 from pmgt_tpu_torch.tasks.pmgt_task import UNPORTED_OPTIONS
@@ -159,10 +161,7 @@ def test_eval_and_inference_need_a_run_with_a_checkpoint(tmp_path, data_dir):
 
 
 @pytest.mark.parametrize("option", [
-    ["--mp-enabled"], ["--gradient-checkpointing"], ["--no-ctx-cache"],
-    ["--shard-feat-tables"], ["--feat-tables-dtype", "bfloat16"],
-    ["--num-devices", "2"], ["--profile-dir", "p"],
-    ["--position-embedding-type", "relative_key"],
+    ["--shard-feat-tables"], ["--num-devices", "2"],
     ["--coordinator-address", "localhost:1234"],
 ])
 def test_unported_options_raise_when_a_run_starts(tmp_path, data_dir, option):
@@ -175,8 +174,76 @@ def test_unported_options_raise_when_a_run_starts(tmp_path, data_dir, option):
 
 
 def test_every_unported_option_is_named():
-    assert set(UNPORTED_OPTIONS) == {
-        "mp_enabled", "position_embedding_type", "gradient_checkpointing",
-        "ctx_cache", "shard_feat_tables", "shard_graph_tables",
-        "feat_tables_dtype", "num_devices", "profile_dir",
-    }
+    assert set(UNPORTED_OPTIONS) == {"shard_feat_tables", "shard_graph_tables", "num_devices"}
+
+
+@pytest.mark.parametrize("option", [
+    ["--mp-enabled"], ["--gradient-checkpointing"], ["--no-ctx-cache"],
+    ["--feat-tables-dtype", "bfloat16"], ["--feat-tables-dtype", "int8"],
+    ["--profile-dir", "PROF"], ["--position-embedding-type", "relative_key"],
+])
+def test_published_options_run_one_cpu_step(tmp_path, data_dir, option):
+    """The options ``train-pmgt`` refused before now run: one epoch of one
+    step (120 training nodes, batches of 96), its evaluation and test."""
+    logs = str(tmp_path / "logs")
+    option = [str(tmp_path / "prof") if x == "PROF" else x for x in option]
+    results = main(_cmd(data_dir, logs, *option, "--num-epochs", "1",
+                        "--train-batch-size", "96"))
+    assert np.isfinite(list(results.values())).all()
+    (run,) = RunRegistry(logs).list_runs()
+    assert run.status == "FINISHED"
+    assert [m["step"] for m in run.metrics() if m["name"] == "val/auc"] == [1]
+    if "--profile-dir" in option:
+        assert any(f.endswith(".pt.trace.json") for f in os.listdir(tmp_path / "prof"))
+
+
+TRAINING_SCRIPTS = ("run_pmgt", "run_pmgt_ncf", "run_ncf", "run_dcn", "run_gmf", "run_mlp",
+                    "run_neumf_pre")
+
+
+def _script_argv(path, emb_path):
+    """The command and arguments a ``scripts/run_*.sh`` passes to ``python
+    main.py``: its ``args=( ... )`` array or its continued command line,
+    with the shell variables bound (seed 0, the TG dataset, run ids g and m,
+    the item embeddings at ``emb_path``)."""
+    import re
+    import shlex
+
+    with open(path) as f:
+        text = f.read().replace("\\\n", " ")
+    array = re.search(r"^args=\((.*?)^\)", text, re.S | re.M)
+    (line,) = [x for x in text.splitlines() if x.startswith("python main.py")]
+    words = shlex.split(line)[2:]
+    if array:
+        body = "\n".join(x for x in array.group(1).splitlines()
+                         if not x.strip().startswith("#"))
+        words = [words[0], *shlex.split(body)]
+    subst = {"$0": path, "$DATASET": "TG", "$SEED": "0", "$2": "g", "$3": "m"}
+    out = []
+    for w in words:
+        if w.startswith("./data/"):
+            w = emb_path
+        for k, v in subst.items():
+            w = w.replace(k, v)
+        out.append(w)
+    return out
+
+
+@pytest.mark.parametrize("script", TRAINING_SCRIPTS)
+def test_published_training_scripts_parse_and_pass_check_args(tmp_path, script):
+    """Every published training script's argument list is taken by the
+    port's parser, and the workload's ``check_args`` raises nothing (no
+    option of theirs is refused)."""
+    import importlib
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    emb = tmp_path / "emb.npy"
+    np.save(emb, np.zeros((4, 4), np.float32))
+    argv = _script_argv(os.path.join(root, "scripts", f"{script}.sh"), str(emb))
+    assert argv[0].startswith("train-") and "--mp-enabled" in argv
+    ns = build_parser().parse_args(argv)
+    args = _make_args({k: v for k, v in vars(ns).items()
+                       if k not in ("save_args", "device", "command", "handler")})
+    assert args.mp_enabled and args.model_name and args.dataset_name == "TG"
+    name = argv[0][len("train-"):].replace("-", "_")
+    importlib.import_module(f"pmgt_tpu_torch.tasks.{name}_task").check_args(args)

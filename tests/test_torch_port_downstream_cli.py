@@ -16,9 +16,11 @@ downstream pipeline end to end on the CPU.
   ``train-pmgt-ncf`` in train, eval and inference modes.
 - Status rules: a run that fails while training is FAILED; eval and
   inference against an existing run leave its status as it was.
-- Options not ported yet raise ``NotImplementedError`` when a run starts
-  (not under ``--save-args``); the default device is the card, so without
-  one a run refuses to start.
+- The multi-GPU options raise ``NotImplementedError`` when a run starts
+  (not under ``--save-args``); the options the commands refused before
+  (``--mp-enabled``, ``--profile-dir``, ``--feat-tables-dtype``) run, and
+  ``--mp-enabled`` leaves NCF and DCN exactly as they are without it; the
+  default device is the card, so without one a run refuses to start.
 - The new modules import with JAX, flax, optax, orbax, click, sklearn and
   ``pmgt_tpu`` unavailable.
 """
@@ -260,16 +262,76 @@ def test_status_rules(tmp_path, pipeline, monkeypatch):
     assert run.status == "INTERRUPTED"
 
 
+# The options that still raise: the multi-GPU ones.
+MULTI_GPU = {
+    "train-ncf": ["--model-name", "MLP", "--num-devices", "2", "--process-id", "1"],
+    "train-dcn": ["--model-name", "DCN", "--num-devices", "2"],
+    "train-pmgt-ncf": ["--model-name", "MLP", "--shard-feat-tables", "--shard-graph-tables",
+                       "--num-devices", "4"],
+}
+
+
 @pytest.mark.parametrize("cmd", sorted(ARGVS))
 def test_unported_options_raise_when_a_run_starts(tmp_path, pipeline, cmd):
     logs = str(tmp_path / "logs")
-    argv = ARGVS[cmd]["unported"]
+    argv = MULTI_GPU[cmd]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         main(["--device", "cpu", cmd, "--dataset-name", "synth", "--data-dir", pipeline["data"],
               "--log-dir", logs, *argv])
     assert not os.path.exists(logs)
     main(["--save-args", str(tmp_path / "a.json"), cmd, "--dataset-name", "synth", *argv])
     assert os.path.exists(tmp_path / "a.json")
+
+
+SMALL_RUNS = {
+    "train-ncf": ("GMF", ["--factor-num", "4", "--max-sample-items", "20"]),
+    "train-dcn": ("DCN", ["--factor-num", "4", "--max-sample-items", "5",
+                          "--early-criterion", "auc"]),
+    "train-pmgt-ncf": ("MLP", ["--hidden-size", "32", "--intermediate-size", "16",
+                               "--num-hidden-layers", "1", "--factor-num", "4",
+                               "--max-sample-items", "20"]),
+}
+
+
+@pytest.mark.parametrize("cmd,option", [
+    ("train-ncf", ["--mp-enabled"]), ("train-ncf", ["--profile-dir", "PROF"]),
+    ("train-dcn", ["--mp-enabled"]), ("train-dcn", ["--profile-dir", "PROF"]),
+    ("train-pmgt-ncf", ["--mp-enabled"]), ("train-pmgt-ncf", ["--feat-tables-dtype", "int8"]),
+])
+def test_published_options_run_one_cpu_step(tmp_path, pipeline, cmd, option):
+    """The options the commands refused before now run: one CPU epoch
+    (a few steps of 32) and its test."""
+    logs = str(tmp_path / "logs")
+    model, small = SMALL_RUNS[cmd]
+    option = [str(tmp_path / "prof") if x == "PROF" else x for x in option]
+    results = main(_cmd(pipeline, cmd, logs, model, *small, *option))
+    assert np.isfinite(list(results.values())).all()
+    (run,) = RunRegistry(logs).list_runs()
+    assert run.status == "FINISHED"
+    if "--profile-dir" in option:
+        assert any(f.endswith(".pt.trace.json") for f in os.listdir(tmp_path / "prof"))
+
+
+@pytest.mark.parametrize("cmd", ["train-ncf", "train-dcn"])
+def test_mp_enabled_changes_nothing_for_ncf_and_dcn(tmp_path, pipeline, cmd):
+    """As in the JAX package, no module of NCF or DCN reads the flag: one
+    CPU epoch with and one without it give identical parameters."""
+    model, small = SMALL_RUNS[cmd]
+    states = []
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for flag in ([], ["--mp-enabled"]):
+            logs = str(tmp_path / f"logs{len(flag)}")
+            main(_cmd(pipeline, cmd, logs, model, *small, *flag))
+            (run,) = RunRegistry(logs).list_runs()
+            path = os.path.join(run.ckpt_dir, "last")
+            states.append(restore_checkpoint(path)["state"]["model"])
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert states[0].keys() == states[1].keys()
+    for name in states[0]:
+        assert torch.equal(states[0][name], states[1][name]), name
 
 
 @pytest.mark.parametrize("cmd,model", [("train-ncf", "GMF"), ("train-dcn", "DCN"),

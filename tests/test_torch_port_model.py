@@ -151,27 +151,55 @@ def test_params_from_flax_rejects_missing_and_extra_leaves(setup):
 
 
 def test_unported_options_raise(setup):
-    """Options not ported yet raise NotImplementedError; dropout and NFR
-    (ported with the training path) raise ValueError without the
+    """Every model option of the JAX package is ported: values it does not
+    have raise ValueError, and dropout and NFR raise ValueError without the
     generator they draw from."""
     _, params, tables = setup
-    with pytest.raises(NotImplementedError):
-        PMGTForPreTraining(PMGTConfig(**SMALL, position_embedding_type="relative_key"), 4)
-    with pytest.raises(NotImplementedError):
-        PMGTForPreTraining(PMGTConfig(**SMALL, dtype="bfloat16"), 4)
-    with pytest.raises(NotImplementedError):
-        PMGTForPreTraining(PMGTConfig(**SMALL, gradient_checkpointing=True), 4)
+    with pytest.raises(ValueError, match="position_embedding_type"):
+        PMGTForPreTraining(PMGTConfig(**SMALL, position_embedding_type="rotary"), 4)
+    with pytest.raises(ValueError, match="compute dtype"):
+        PMGTForPreTraining(PMGTConfig(**SMALL, dtype="float16"), 4)
+    with pytest.raises(ValueError, match="attention_impl"):
+        PMGTForPreTraining(PMGTConfig(**SMALL, attention_impl="triton"), 4)
     model = _port_model(params)
     t = [torch.from_numpy(x) for x in tables]
     ids = torch.full((2, SEQ), 3)
     mask = torch.ones(2, SEQ)
     with pytest.raises(ValueError, match="Generator"):
         model.encode(t, ids, mask, deterministic=False)
-    with pytest.raises(NotImplementedError):
-        model.bert([x[ids] for x in t], mask, output_attentions=True)
-    with pytest.raises(NotImplementedError):
-        model.bert([x[ids] for x in t], mask, head_mask=torch.ones(2))
     batch = PretrainBatch(ids, mask, ids[:, None], mask[:, None],
                           torch.ones(2, 1), torch.ones(2, 1))
     with pytest.raises(ValueError, match="Generator"):
         model(t, batch, compute_nfr=True)
+
+
+@pytest.mark.parametrize("option", [
+    dict(position_embedding_type="relative_key"), dict(dtype="bfloat16"),
+    dict(gradient_checkpointing=True), "output_attentions", "head_mask",
+])
+def test_model_options_run(setup, option):
+    """The options the model refused before run a training forward and
+    backward on the CPU (their parity is in test_torch_port_model_options.py
+    and test_torch_port_mixed_precision.py)."""
+    _, _, tables = setup
+    cfg = PMGTConfig(**SMALL, **(option if isinstance(option, dict) else {}))
+    model = PMGTForPreTraining(cfg, NODE_SIZE)
+    model.init_weights(torch.Generator().manual_seed(0))
+    t = [torch.from_numpy(x) for x in tables]
+    ids = torch.randint(2, NODE_SIZE + 2, (3, SEQ), generator=torch.Generator().manual_seed(1))
+    mask = torch.ones(3, SEQ)
+    gen = torch.Generator().manual_seed(2)
+    if isinstance(option, dict):
+        batch = PretrainBatch(ids, mask, ids[:, None], mask[:, None],
+                              torch.ones(3, 1), torch.ones(3, 1))
+        loss = model(t, batch, deterministic=False, compute_nfr=True, generator=gen).loss
+    else:
+        kw = ({"output_attentions": True} if option == "output_attentions"
+              else {"head_mask": torch.tensor([1.0, 0.5])})
+        out = model.bert([x[ids] for x in t], mask, False, generator=gen, **kw)
+        hidden = out[0] if isinstance(out, tuple) else out
+        loss = hidden.float().square().mean()
+    loss.backward()
+    assert bool(torch.isfinite(loss))
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for n, p in model.named_parameters() if n.startswith("bert.layers"))
