@@ -81,12 +81,12 @@ Phases (any failure raises and the script exits non-zero):
 
 10b. ``train-pmgt`` with scripts/run_pmgt.sh's arguments (hidden 32, 3
     layers, β 1.0, batch 32, test batch 64, lr 1e-4, decay 1e-2, max-norm
-    5.0, ``--mp-enabled``, the kernel route) on phase 10's data: 2 epochs
+    5.0, ``--mp-enabled``, the kernel route) on phase 10's data: 1 epoch
     and ``--mode inference``, exact K1/K2 counts, the resident feature
     tables bf16 (half the f32 bytes). The same checkpoint exported on the
     plain route (bf16): max |diff| <= 5e-2·max|export| and mean <=
-    1e-2·mean|export|; the same two epochs on the plain route in bf16 (val
-    AUC within 1e-2 at each epoch) and under the f32 policy (the gap
+    1e-2·mean|export|; the same epoch on the plain route in bf16 (val
+    AUC within 1e-2) and under the f32 policy (the gap
     printed); epoch, evaluate and export times.
 11. K1 at the downstream lanes, f32 without keep masks (checked with
     phase 2): N=4,000 (a PMGT_NCF evaluation chunk: 4 users × 1,000
@@ -143,6 +143,37 @@ Phases (any failure raises and the script exits non-zero):
     layers take the plain attention, as in JAX), ``--feat-tables-dtype
     int8`` and ``--profile-dir`` (a trace file written); step-1 gradients
     with and without checkpointing (f32) within 1e-6·max|g| + 1e-10.
+
+17. ``preprocess`` through ``main()`` on a seeded review dump in the
+    Amazon layout (``write_review_dump``: 12,000 items, 150,000 reviewers,
+    940,000 reviews before 2015-01-01 and 60,000 after): node, edge, user
+    and pair counts and each stage's host time; the native pair counter
+    against scipy's sparse product (identical edges) and the native alias
+    builder against the Python loop (bit-equal tables), each timed, on the
+    run's own inputs; ``load_artifacts`` reading the result back; a second
+    run with seeded ``_feats.npz`` files and ``--extract-features`` fills
+    exactly those rows. At least 10,000 nodes; no kernel launched.
+18. ``hp-tuning --train-name pmgt`` with config/hpo/hpo_pmgt_params.yaml and
+    a copy of config/hpo/train_pmgt_params.json (only ``data_dir``,
+    ``dataset_name``, ``log_dir`` and ``num_epochs`` = 1 changed) on phase
+    17's data: 2 trials, then the same study resumed to 3 (exactly one
+    more). Per trial, counts zeroed just before and read just after: its
+    params, epoch time and objective; FINISHED; the objective equal to
+    its logged ``val/auc`` within 1e-6; K2 = L a step and K1 = L a step +
+    L an evaluation chunk; ``torch.cuda.memory_allocated()`` after
+    ``gc.collect()`` back within 16 MB of its value before the first
+    trial.
+19. ``hp-tuning --train-name ncf --enable-trial-pruning`` with
+    config/hpo/hpo_ncf_neumf_pmgt_params.yaml (NeuMF-PMGT, ``prune: true``
+    arms), its ``node_feat*_{32,64,128}dim.npy`` statics rewritten to
+    ``train-pmgt --mode inference`` exports of phase 17's data at hidden
+    32, 64 and 128 (each trained one short epoch first): 2 COMPLETE trials,
+    every trial that drew a prune arm PRUNED and no other, ``should_prune``
+    asked once an epoch and never True (the built-in study), each COMPLETE
+    objective equal to its logged ``val/n20``.
+K1 and K2 are also checked (phases 2 and 5) at the PMGT search space's
+shapes: bf16, S = 6, N = 384, keep masks, at d = 64 and at d = 32 with β =
+0, 0.25 and 1; at β = 0 K2's dc must be exactly 0 on both sides.
 
 After the serving and training runs, one pass under ``torch.profiler``
 (one evaluate and one export; one training step) gives the device's busy
@@ -340,8 +371,9 @@ def k1_bound_ms(s: int, n: int, d: int, elem_bytes: int, mask_bytes: int) -> dic
     }
 
 
-def check_k1(s: int, n: int, d: int, dtype, keep_masks: bool) -> dict:
-    """K1 against its plain version on one input; returns errors, times."""
+def check_k1(s: int, n: int, d: int, dtype, keep_masks: bool, beta: float = 0.5) -> dict:
+    """K1 against its plain version on one input, the cosine branch
+    weighted ``beta``; returns errors, times."""
     import torch
 
     from pmgt_tpu_torch.ops.dual_attention import (
@@ -362,7 +394,7 @@ def check_k1(s: int, n: int, d: int, dtype, keep_masks: bool) -> dict:
     if keep_masks:
         m1 = torch.rand(s, n, s, generator=g, device="cuda") < 0.9
         m2 = torch.rand(s, n, s, generator=g, device="cuda") < 0.9
-    args = (q, k, v, c, mask, m1, m2, 0.5, 0.9, keep_masks)
+    args = (q, k, v, c, mask, m1, m2, beta, 0.9, keep_masks)
 
     out = dual_attention_sm(*args)
     torch.cuda.synchronize()
@@ -379,7 +411,7 @@ def check_k1(s: int, n: int, d: int, dtype, keep_masks: bool) -> dict:
         limit, tol = 2e-2 * scale, "max abs err <= 2e-2 * max|out|"
     ok = err <= limit
     row = {
-        "phase": "k1_check", "S": s, "N": n, "d": d,
+        "phase": "k1_check", "S": s, "N": n, "d": d, "beta": beta,
         "dtype": str(dtype).replace("torch.", ""), "keep_masks": keep_masks,
         "max_abs_err": err, "max_abs_out": scale, "limit": limit, "tolerance": tol, "ok": ok,
         # Device time from CUDA-graph replay; the events time of
@@ -418,11 +450,12 @@ def k2_bound_ms(s: int, n: int, d: int, elem_bytes: int, mask_bytes: int) -> dic
     }
 
 
-def check_k2(s: int, n: int, d: int, keep_masks: bool, dtype=None) -> dict:
+def check_k2(s: int, n: int, d: int, keep_masks: bool, dtype=None, beta: float = 0.5) -> dict:
     """K2 against its plain version on one input (masked keys in every
     sequence, one zero context row) in ``dtype`` (f32 by default; the plain
-    version computes in f32 and rounds as the kernel does); returns errors
-    and times."""
+    version computes in f32 and rounds as the kernel does), the cosine
+    branch weighted ``beta``; at β = 0 dc must be exactly 0 on both sides.
+    Returns errors and times."""
     import torch
 
     from pmgt_tpu_torch.ops.dual_attention import (
@@ -445,7 +478,7 @@ def check_k2(s: int, n: int, d: int, keep_masks: bool, dtype=None) -> dict:
     if keep_masks:
         m1 = torch.rand(s, n, s, generator=g, device="cuda") < 0.9
         m2 = torch.rand(s, n, s, generator=g, device="cuda") < 0.9
-    args = (q, k, v, c, mask, m1, m2, go, 0.5, 0.9, keep_masks)
+    args = (q, k, v, c, mask, m1, m2, go, beta, 0.9, keep_masks)
 
     got = dual_attention_sm_backward(*args)
     torch.cuda.synchronize()
@@ -472,8 +505,11 @@ def check_k2(s: int, n: int, d: int, keep_masks: bool, dtype=None) -> dict:
                                    "max_abs_ref": b.abs().max().item(),
                                    "limit": tol}
     oks.append(err <= tol)
+    if beta == 0.0:  # no cosine branch: no gradient into c, and no NaN
+        errs["dc_exactly_zero"] = bool((got[3] == 0).all() and (want[3] == 0).all())
+        oks.append(errs["dc_exactly_zero"])
     row = {
-        "phase": "k2_check", "S": s, "N": n, "d": d,
+        "phase": "k2_check", "S": s, "N": n, "d": d, "beta": beta,
         "dtype": str(dtype).replace("torch.", ""),
         "keep_masks": keep_masks, "errors": errs,
         # the largest error among the gradients without the zero row's dc
@@ -1706,7 +1742,9 @@ def run_downstream_cli(art_cut, data_root: str, emb_path: str, emb32_path: str) 
 
 # ---- the published scripts' configurations (bf16 compute policy) -----------
 
-# scripts/run_pmgt.sh's arguments (its 30 epochs cut to 2)
+# scripts/run_pmgt.sh's arguments (its 30 epochs cut to PUBLISHED_PMGT_EPOCHS:
+# 1 since the hp-tuning phases joined, which keeps the script near 480 s)
+PUBLISHED_PMGT_EPOCHS = 1
 PUBLISHED_PMGT = ["--model-name", "PMGT", "--lr", "1e-4", "--decay", "1e-2",
                   "--train-batch-size", "32", "--test-batch-size", "64",
                   "--early-criterion", "auc", "--seed", "0", "--early", "5",
@@ -1782,10 +1820,10 @@ def auc_by_epoch(log_dir: str) -> dict:
 def run_published_pmgt(data_dir: str, root: str) -> dict:
     """``train-pmgt`` with scripts/run_pmgt.sh's arguments (hidden 32, 3
     layers, β 1.0, batch 32, ``--mp-enabled``, the kernel route) on the
-    TG-shape data of the ``cli`` phase: 2 epochs, then ``--mode
+    TG-shape data of the ``cli`` phase: ``PUBLISHED_PMGT_EPOCHS``, then ``--mode
     inference``; exact K1/K2 counts; the resident feature tables bf16. The
     same checkpoint exported on the plain route (bf16) within a bf16 limit;
-    the same two epochs on the plain route in bf16 (val AUC within 1e-2 at
+    the same epochs on the plain route in bf16 (val AUC within 1e-2 at
     each epoch) and under the f32 policy (the gap printed). Evaluate and
     export times from the restored best checkpoint in this process."""
     import shutil
@@ -1796,13 +1834,14 @@ def run_published_pmgt(data_dir: str, root: str) -> dict:
     from pmgt_tpu_torch.tasks import pmgt_task
 
     shutil.rmtree(root, ignore_errors=True)
+    epochs = PUBLISHED_PMGT_EPOCHS
     invocations, exports = {}, {}
     common = ["--dataset-name", "TG", "--data-dir", data_dir]
 
     def train(label, *extra):
         log_dir = os.path.join(root, f"logs_{label}")
         out = cli_invoke(["--device", "cuda", "train-pmgt", *common, "--log-dir", log_dir,
-                          *PUBLISHED_PMGT, *extra, "--num-epochs", "2"],
+                          *PUBLISHED_PMGT, *extra, "--num-epochs", str(epochs)],
                          invocations, f"train_{label}")
         return out, log_dir
 
@@ -1823,7 +1862,7 @@ def run_published_pmgt(data_dir: str, root: str) -> dict:
     argv_f32 = [x for x in PUBLISHED_PMGT if x != "--mp-enabled"]
     log_f = os.path.join(root, "logs_f32")
     cli_invoke(["--device", "cuda", "train-pmgt", *common, "--log-dir", log_f, *argv_f32,
-                "--num-epochs", "2"], invocations, "train_f32_policy")
+                "--num-epochs", str(epochs)], invocations, "train_f32_policy")
     auc_f, epoch_s_f32, _ = auc_by_epoch(log_f)
 
     # the bf16 task in this process: resident tables, evaluate and export times
@@ -1847,12 +1886,13 @@ def run_published_pmgt(data_dir: str, root: str) -> dict:
     chunks = math.ceil(len(ctx["valid_nodes"]) / 64)
     export_chunks = math.ceil(task.artifacts.num_nodes / 64)
     none = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
-    want = {"train_kernel": {**none, "k1": layers * (2 * steps + 3 * chunks),
-                             "k2": layers * 2 * steps},
+    want = {"train_kernel": {**none, "k1": layers * (epochs * steps + (epochs + 1) * chunks),
+                             "k2": layers * epochs * steps},
             "inference_kernel": {**none, "k1": layers * export_chunks},
             "inference_plain_same_params": none, "train_plain": none,
-            "train_f32_policy": {**none, "k1": layers * (2 * steps + 3 * chunks),
-                                 "k2": layers * 2 * steps}}
+            "train_f32_policy": {**none,
+                                 "k1": layers * (epochs * steps + (epochs + 1) * chunks),
+                                 "k2": layers * epochs * steps}}
     emb_k, emb_p = exports["kernel"], exports["plain_same_params"]
     diff = np.abs(emb_k - emb_p)
     auc_gap = max(abs(auc_k[e] - auc_p[e]) for e in auc_k)
@@ -1862,14 +1902,15 @@ def run_published_pmgt(data_dir: str, root: str) -> dict:
         and 2 * tables["bytes"] == tables["f32_bytes"],
         "export": emb_k.shape == (task.artifacts.num_nodes, 32) and emb_k.dtype == np.float32
         and bool(np.isfinite(emb_k).all()),
-        "val_auc_two_epochs": sorted(auc_k) == [0, 1] == sorted(auc_p) == sorted(auc_f),
+        "val_auc_each_epoch": sorted(auc_k) == list(range(epochs)) == sorted(auc_p)
+        == sorted(auc_f),
         "routes_val_auc_within_1e-2": auc_gap <= 1e-2,
         "routes_export_within_bf16_limit": float(diff.max()) <= 5e-2 * float(np.abs(emb_k).max())
         and float(diff.mean()) <= 1e-2 * float(np.abs(emb_k).mean()),
         "metrics_finite": bool(np.isfinite([*test_k.values(), *test_p.values()]).all()),
     }
     row = {
-        "phase": "published_pmgt", "script": "scripts/run_pmgt.sh (2 of its 30 epochs)",
+        "phase": "published_pmgt", "script": f"scripts/run_pmgt.sh ({epochs} of its 30 epochs)",
         "invocations": invocations, "expected_launches": want,
         "steps_per_epoch": steps, "eval_chunks": chunks,
         "feature_tables": tables, "val_auc_kernel": auc_k, "val_auc_plain": auc_p,
@@ -2092,6 +2133,486 @@ def run_options(data_dir: str, root: str) -> dict:
     return row
 
 
+# ---- the data and tuning commands: preprocess and hp-tuning -----------------
+
+# The seeded review dump of the preprocess phase, sized to give a TG-sized
+# co-review graph at min_common_users 3 (TG: 10,834 nodes, 38,252 edges):
+# 12,000 items in communities of 8, 150,000 reviewers, 940,000 reviews
+# before 2015-01-01 and 60,000 after it. The post-cutoff interactions (~56k
+# over graph items) are cut from TG's 378k pairs, so that an hp-tuning
+# trial's epoch takes seconds at batch 32.
+DUMP = {"items": 12_000, "reviewers": 150_000, "pre_reviews": 940_000,
+        "post_reviews": 60_000, "community": 8}
+REVIEWS = "REVIEWS"  # the preprocessed dataset's name
+
+
+def write_review_dump(raw_dir: str, items: int, reviewers: int, pre_reviews: int,
+                      post_reviews: int, community: int, seed: int = 0) -> dict:
+    """A gzipped review dump in the Amazon 5-core layout (one JSON object a
+    line: reviewerID, asin, unixReviewTime, reviewText, overall) from
+    ``seed``. Each reviewer has a home community of ``community`` items
+    (popularity ∝ 1/rank^0.8 inside it) and lognormal(0, 1) activity; a
+    review picks from the home community with probability 0.88, else from
+    all items by lognormal(0, 1.5) popularity. Timestamps are uniform over
+    2010–2014 for ``pre_reviews`` and over 2015–2017 for ``post_reviews``."""
+    import gzip
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    home = rng.integers(0, items // community, reviewers)
+    activity = rng.lognormal(0.0, 1.0, reviewers)
+    activity /= activity.sum()
+    within = 1.0 / np.arange(1, community + 1) ** 0.8
+    within /= within.sum()
+    popularity = rng.lognormal(0.0, 1.5, items)
+    popularity /= popularity.sum()
+    cutoff = 1_420_070_400  # 2015-01-01 UTC
+
+    def draw(n, lo, hi):
+        users = rng.choice(reviewers, n, p=activity)
+        item = home[users] * community + rng.choice(community, n, p=within)
+        away = rng.random(n) >= 0.88
+        item[away] = rng.choice(items, int(away.sum()), p=popularity)
+        return users, item, rng.integers(lo, hi, n), rng.integers(1, 6, n)
+
+    words = ("fun", "great", "toy", "broke", "kids", "love", "cheap", "gift")
+    lines = []
+    for users, item, ts, stars in (draw(pre_reviews, 1_262_304_000, cutoff),
+                                   draw(post_reviews, cutoff, 1_514_764_800)):
+        for u, i, t, r in zip(users.tolist(), item.tolist(), ts.tolist(), stars.tolist()):
+            lines.append(f'{{"reviewerID": "A{u:013d}", "asin": "B{i:09d}", '
+                         f'"unixReviewTime": {t}, "reviewText": "{words[(u + i) % 8]} '
+                         f'{words[(u * 7 + i) % 8]}", "overall": {r}.0}}')
+    os.makedirs(raw_dir, exist_ok=True)
+    path = os.path.join(raw_dir, "reviews.json.gz")
+    with gzip.open(path, "wt", compresslevel=1) as f:
+        f.write("\n".join(lines) + "\n")
+    return {"reviews": len(lines), "pre_reviews": pre_reviews, "post_reviews": post_reviews,
+            "items": items, "reviewers": reviewers, "bytes": os.path.getsize(path),
+            "write_s": time.perf_counter() - t0}
+
+
+def run_preprocess(root: str, dump: dict, min_nodes: int = 10_000) -> dict:
+    """``preprocess`` through ``main()`` on a seeded review dump: counts,
+    each stage's host time; the native pair counter against the scipy
+    product and the native alias builder against the Python loop on the
+    run's own inputs (identical edges, bit-equal tables), each timed;
+    ``load_artifacts`` reading the result back; then a second run with
+    seeded ``<dataset>_{visual,textual}_feats.npz`` and
+    ``--extract-features``, whose seeded rows equal the files' and whose
+    other rows equal the first run's. The graph must have at least
+    ``min_nodes`` nodes."""
+    import logging
+    import shutil
+
+    from pmgt_tpu_torch import native
+    from pmgt_tpu_torch.cli.main import main as cli_main
+    from pmgt_tpu_torch.data.artifacts import load_artifacts
+    from pmgt_tpu_torch.data.preprocess import co_review_edges_scipy
+    from pmgt_tpu_torch.graph.container import build_alias_tables_python
+
+    shutil.rmtree(root, ignore_errors=True)
+    raw, out, out2 = (os.path.join(root, d) for d in ("raw", "data", "data_seeded"))
+    written = write_review_dump(raw, **dump)
+
+    # the run's own inputs of the two native builders, and its stage times
+    seen, stages = {}, {}
+    real_count, real_alias = native.co_review_edges_native, native.build_alias_tables_native
+
+    def count(items, users, min_common, max_pairs=2_000_000_000):
+        seen["pairs"] = (items, users, min_common)
+        return real_count(items, users, min_common, max_pairs)
+
+    def alias(logits, degrees):
+        seen["alias"] = (logits, degrees)
+        return real_alias(logits, degrees)
+
+    class StageLog(logging.Handler):
+        def emit(self, record):
+            stages.update(getattr(record, "stage_seconds", {}))
+
+    handler, log = StageLog(), logging.getLogger("pmgt_tpu_torch")
+    argv = ["preprocess", "--raw-dir", raw, "--dataset-name", REVIEWS]
+    native.co_review_edges_native, native.build_alias_tables_native = count, alias
+    log.addHandler(handler)
+    try:
+        zero_launches()
+        t = time.perf_counter()
+        art = cli_main([*argv, "--out-dir", out])
+        wall = time.perf_counter() - t
+        launches = read_launches()
+    finally:
+        native.co_review_edges_native, native.build_alias_tables_native = real_count, real_alias
+        log.removeHandler(handler)
+
+    items, users, min_common = seen["pairs"]
+    t = time.perf_counter()
+    nat = real_count(items, users, min_common)
+    native_s = time.perf_counter() - t
+    t = time.perf_counter()
+    sci = co_review_edges_scipy(items, users, int(items.max()) + 1, int(users.max()) + 1,
+                                min_common)
+    scipy_s = time.perf_counter() - t
+
+    def edge_rows(e):
+        a = np.stack([np.asarray(x, np.int64) for x in e], 1)
+        return a[np.lexsort((a[:, 1], a[:, 0]))]
+
+    logits, degrees = seen["alias"]
+    t = time.perf_counter()
+    prob_n, idx_n = real_alias(logits, degrees)
+    alias_native_s = time.perf_counter() - t
+    t = time.perf_counter()
+    prob_p, idx_p = build_alias_tables_python(logits, degrees)
+    alias_python_s = time.perf_counter() - t
+
+    t = time.perf_counter()
+    back = load_artifacts(out, REVIEWS)
+    load_s = time.perf_counter() - t
+
+    # the drop-in feature files: every third node's visual row, every
+    # fifth node's textual row, and one asin that is no node
+    nodes = [str(a) for a in art.node_classes]
+    rng = np.random.default_rng(1)
+    os.makedirs(out2, exist_ok=True)
+    seeded = {}
+    for modality, dim, picked in (("visual", 1536, nodes[::3]), ("textual", 768, nodes[::5])):
+        feats = rng.normal(size=(len(picked) + 1, dim)).astype(np.float32)
+        np.savez_compressed(os.path.join(out2, f"{REVIEWS}_{modality}_feats.npz"), feats=feats,
+                            asins=np.asarray(picked + ["B_NOT_A_NODE"], dtype=object))
+        seeded[modality] = (picked, feats)
+    t = time.perf_counter()
+    art2 = cli_main([*argv, "--out-dir", out2, "--extract-features"])
+    seeded_wall = time.perf_counter() - t
+    fills = {}
+    for m, (modality, (picked, feats)) in enumerate(seeded.items()):
+        rows = np.zeros(art.num_nodes + 2, bool)
+        rows[2 + np.arange(art.num_nodes)[::3 if modality == "visual" else 5]] = True
+        table, base = art2.feat_init_embs[m], art.feat_init_embs[m]
+        fills[modality] = (bool(np.array_equal(table[rows], feats[:-1]))
+                           and bool(np.array_equal(table[~rows], base[~rows])))
+
+    checks = {
+        "native_equals_scipy_edges": bool(np.array_equal(edge_rows(nat), edge_rows(sci))),
+        "native_alias_equals_python": bool(np.array_equal(prob_n, prob_p)
+                                           and np.array_equal(idx_n, idx_p)),
+        "graph_uses_the_native_tables": bool(np.array_equal(art.graph.alias_prob, prob_n)
+                                             and np.array_equal(art.graph.alias_idx, idx_n)),
+        "at_least_min_nodes": art.num_nodes >= min_nodes,
+        "load_artifacts_reads_it_back":
+            back.num_nodes == art.num_nodes
+            and bool(np.array_equal(back.graph.alias_prob, art.graph.alias_prob))
+            and bool(np.array_equal(back.train_pairs, art.train_pairs))
+            and bool(np.array_equal(back.feat_init_embs[0], art.feat_init_embs[0]))
+            and list(back.item_classes) == list(art.item_classes),
+        "seeded_rows_filled_exactly": all(fills.values()),
+        "no_kernel_launched": not any(launches.values()),
+    }
+    row = {
+        "phase": "preprocess", "dump": written,
+        "nodes": art.num_nodes, "edges": int(art.graph.degrees.sum()) // 2,
+        "max_degree": art.graph.max_degree, "users": art.num_users, "items": art.num_items,
+        "train_pairs": len(art.train_pairs), "test_pairs": len(art.test_pairs),
+        "graph_pairs": len(items), "command_s": wall, "stage_s": stages,
+        "count_pairs_native_s": native_s, "count_pairs_scipy_s": scipy_s,
+        "alias_native_s": alias_native_s, "alias_python_s": alias_python_s,
+        "load_artifacts_s": load_s, "seeded_command_s": seeded_wall, "launches": launches,
+        "checks": checks, "ok": all(checks.values()),
+    }
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"preprocess failed: {checks}")
+    return {"row": row, "data_dir": out, "art": art}
+
+
+def watch_trials(records: list, base: dict):
+    """Wrap ``cli.hpo._objective`` (each trial of ``hp-tuning``): the
+    counts zeroed just before and read just after each trial, its wall
+    time, its outcome, and ``torch.cuda.memory_allocated()`` after
+    ``gc.collect()`` (``base["memory"]``: before the first trial). Returns
+    the function that restores the original."""
+    import gc
+
+    import torch
+
+    from pmgt_tpu_torch.cli import hpo
+
+    real = hpo._objective
+
+    def watched(trial, *args, **kwargs):
+        gc.collect()
+        torch.cuda.synchronize()
+        base.setdefault("memory", torch.cuda.memory_allocated())
+        zero_launches()
+        rec = {"number": trial.number}
+        t = time.perf_counter()
+        try:
+            rec["objective"] = real(trial, *args, **kwargs)
+            rec["state"] = "COMPLETE"
+            return rec["objective"]
+        except hpo.TrialPruned:
+            rec["state"] = "PRUNED"
+            raise
+        finally:
+            torch.cuda.synchronize()
+            rec.update(wall_s=time.perf_counter() - t, launches=read_launches(),
+                       params=dict(trial.params))
+            gc.collect()
+            rec["memory_allocated"] = torch.cuda.memory_allocated()
+            records.append(rec)
+
+    hpo._objective = watched
+
+    def restore():
+        hpo._objective = real
+
+    return restore
+
+
+def trial_runs(log_dir: str) -> dict:
+    """{trial number: (run, its val metrics by name, epoch times)} of the
+    runs an hp-tuning study logged under ``log_dir``."""
+    from pmgt_tpu_torch.train.registry import RunRegistry
+
+    out = {}
+    for run in RunRegistry(log_dir).list_runs():
+        with open(os.path.join(run.run_dir, "tags.json")) as f:
+            tags = json.load(f)
+        metrics = {}
+        for m in run.metrics():
+            metrics.setdefault(m["name"], []).append(m["value"])
+        out[int(tags["trial"])] = (run, metrics, tags)
+    return out
+
+
+def run_hpo_pmgt(data_dir: str, root: str, art) -> dict:
+    """``hp-tuning --train-name pmgt`` with config/hpo/hpo_pmgt_params.yaml
+    and a copy of config/hpo/train_pmgt_params.json that changes only
+    ``data_dir``, ``dataset_name``, ``log_dir`` and ``num_epochs`` (1): 2
+    trials, then the same study resumed to 3 (exactly one more trial). Per
+    trial: FINISHED, its objective equal to its logged ``val/auc`` within
+    1e-6 (1 epoch: the best), K2 = L a step and K1 = L a step + L an
+    evaluation chunk (the epoch's validation and the HPO test, which
+    evaluates the validation split), and the card's allocated memory back
+    within 16 MB of its value before the first trial."""
+    import shutil
+
+    from pmgt_tpu_torch.cli.main import main as cli_main
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    with open(os.path.join(HERE, "config", "hpo", "train_pmgt_params.json")) as f:
+        cfg = json.load(f)
+    log_dir = os.path.join(root, "logs")
+    cfg.update(data_dir=data_dir, dataset_name=REVIEWS, log_dir=log_dir, num_epochs=1)
+    train_path = os.path.join(root, "train_pmgt_params.json")
+    with open(train_path, "w") as f:
+        json.dump(cfg, f, indent=2)
+    argv = ["--device", "cuda", "hp-tuning", "--hp-config-path",
+            os.path.join(HERE, "config", "hpo", "hpo_pmgt_params.yaml"),
+            "--train-config-path", train_path, "--train-name", "pmgt",
+            "--study-name", "pmgt-study", "--storage-path", os.path.join(root, "hpo", "db")]
+    records, base = [], {}
+    restore = watch_trials(records, base)
+    try:
+        t = time.perf_counter()
+        cli_main([*argv, "--n-trials", "2"])
+        first_s, first = time.perf_counter() - t, len(records)
+        cli_main([*argv, "--n-trials", "3"])
+    finally:
+        restore()
+    with open(os.path.join(root, "hpo", "pmgt-study_trials.json")) as f:
+        stored = json.load(f)
+
+    n_valid = math.ceil(cfg["valid_size"] * art.num_nodes)
+    steps = (art.num_nodes - n_valid) // cfg["train_batch_size"]
+    chunks = math.ceil(n_valid / cfg["test_batch_size"])
+    runs = trial_runs(log_dir)
+    none = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
+    trials, ok_trials = [], []
+    for rec in records:
+        run, metrics, tags = runs[rec["number"]]
+        layers = int(run.params["num_hidden_layers"])
+        want = {**none, "k1": layers * (steps + 2 * chunks), "k2": layers * steps}
+        auc = metrics.get("val/auc", [])
+        trial = {
+            "phase": "hpo_pmgt_trial", **rec, "run_status": run.status,
+            "hidden_size": run.params["hidden_size"], "num_hidden_layers": layers,
+            "beta": run.params["beta"], "lr": run.params["lr"],
+            "mask_node_ratio": run.params["mask_node_ratio"],
+            "epoch_s": metrics.get("epoch_time"), "val_auc": auc,
+            "expected_launches": want,
+            "memory_over_base_bytes": rec["memory_allocated"] - base["memory"],
+        }
+        trial["checks"] = {
+            "finished": run.status == "FINISHED" and rec["state"] == "COMPLETE",
+            "objective_is_logged_val_auc": len(auc) == 1
+            and abs(rec["objective"] - auc[0]) <= 1e-6,
+            "launches": rec["launches"] == want,
+            "memory_within_16MB": abs(trial["memory_over_base_bytes"]) <= 16 << 20,
+            "tagged": tags.get("study_name") == "pmgt-study",
+        }
+        emit(trial)
+        trials.append(trial)
+        ok_trials.append(all(trial["checks"].values()))
+    checks = {
+        "trials": ok_trials == [True] * 3,
+        "resume_adds_one": first == 2 and len(records) == 3
+        and [t["number"] for t in stored] == [0, 1, 2]
+        and all(t["state"] == "COMPLETE" for t in stored),
+        "stored_objectives": [t["value"] for t in stored] == [r["objective"] for r in records],
+    }
+    row = {"phase": "hpo_pmgt", "steps_per_epoch": steps, "eval_chunks": chunks,
+           "first_two_trials_s": first_s, "memory_base_bytes": base["memory"],
+           "launches": {k: sum(r["launches"][k] for r in records) for k in none},
+           "checks": checks, "ok": all(checks.values())}
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"hp-tuning (PMGT) failed: {checks}")
+    return {"row": row, "trials": trials}
+
+
+def run_hpo_ncf(data_dir: str, root: str, art) -> dict:
+    """``hp-tuning --train-name ncf --enable-trial-pruning`` with
+    config/hpo/hpo_ncf_neumf_pmgt_params.yaml (NeuMF-PMGT, with ``prune:
+    true`` arms) and a copy of config/hpo/train_ncf_neumf_pmgt_params.json
+    (``data_dir``, ``dataset_name``, ``log_dir``, ``num_epochs`` 1, and its
+    ``item_init_emb_path``); the space's three ``node_feat*_{32,64,128}
+    dim.npy`` statics rewritten to exports of the preprocessed dataset made
+    here by ``train-pmgt`` (hidden 32, 64, 128; 2 layers; one short epoch)
+    and ``--mode inference``, so the ``classes.npz`` node-to-item remap runs
+    on the card. 2 trials: 2 COMPLETE in the trials JSON, every trial that
+    drew a prune arm PRUNED and no other, ``should_prune`` asked once an
+    epoch and never True (the built-in study), each COMPLETE objective
+    equal to its logged ``val/n20``."""
+    import shutil
+
+    from pmgt_tpu_torch.cli import hpo
+    from pmgt_tpu_torch.cli.main import main as cli_main
+    from pmgt_tpu_torch.data.artifacts import load_node_init_emb
+    from pmgt_tpu_torch.train.registry import RunRegistry
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    invocations, exports, remap = {}, {}, {}
+    for h in (32, 64, 128):
+        log_dir = os.path.join(root, f"pmgt_logs_{h}")
+        common = ["--device", "cuda", "train-pmgt", "--model-name", "PMGT",
+                  "--dataset-name", REVIEWS,
+                  "--data-dir", data_dir, "--log-dir", log_dir, "--early-criterion", "auc",
+                  "--hidden-size", str(h), "--intermediate-size", str(h),
+                  "--num-hidden-layers", "2", "--test-batch-size", "1024"]
+        cli_invoke([*common, "--num-epochs", "1", "--valid-size", "0.9"], invocations,
+                   f"train_pmgt_{h}")
+        (run,) = RunRegistry(log_dir).list_runs()
+        exports[h] = os.path.join(root, f"node_feat_{h}dim.npy")
+        cli_invoke([*common, "--mode", "inference", "--run-id", run.run_id,
+                    "--inference-result-path", exports[h]], invocations, f"export_{h}")
+        emb = np.load(exports[h])
+        items = load_node_init_emb(art.item_classes, art.node_classes, emb)
+        remap[h] = {"export_shape": list(emb.shape), "finite": bool(np.isfinite(emb).all()),
+                    "item_table_shape": list(items.shape)}
+
+    with open(os.path.join(HERE, "config", "hpo", "hpo_ncf_neumf_pmgt_params.yaml")) as f:
+        space = f.read()
+    for h, name in ((32, "node_feat4_32dim"), (64, "node_feat6_64dim"),
+                    (128, "node_feat5_128dim")):
+        space = space.replace(f"./data/VG/{name}.npy", exports[h])
+    space_path = os.path.join(root, "hpo_ncf_neumf_pmgt_params.yaml")
+    with open(space_path, "w") as f:
+        f.write(space)
+    with open(os.path.join(HERE, "config", "hpo", "train_ncf_neumf_pmgt_params.json")) as f:
+        cfg = json.load(f)
+    log_dir = os.path.join(root, "logs")
+    cfg.update(data_dir=data_dir, dataset_name=REVIEWS, log_dir=log_dir, num_epochs=1,
+               item_init_emb_path=exports[32])
+    train_path = os.path.join(root, "train_ncf_neumf_pmgt_params.json")
+    with open(train_path, "w") as f:
+        json.dump(cfg, f, indent=2)
+
+    asked = []
+    real_should_prune = hpo.RandomTrial.should_prune
+
+    def should_prune(self):
+        asked.append(real_should_prune(self))
+        return asked[-1]
+
+    records, base = [], {}
+    restore = watch_trials(records, base)
+    hpo.RandomTrial.should_prune = should_prune
+    try:
+        cli_main(["--device", "cuda", "hp-tuning", "--hp-config-path", space_path,
+                  "--train-config-path",
+                  train_path, "--train-name", "ncf", "--study-name", "ncf-pmgt-study",
+                  "--storage-path", os.path.join(root, "hpo", "db"), "--n-trials", "2",
+                  "--enable-trial-pruning"])
+    finally:
+        restore()
+        hpo.RandomTrial.should_prune = real_should_prune
+    with open(os.path.join(root, "hpo", "ncf-pmgt-study_trials.json")) as f:
+        stored = json.load(f)
+
+    class Replay:
+        """The recorded draws of a trial, replayed through the space."""
+
+        def __init__(self, params):
+            self.params = params
+
+        def suggest_categorical(self, name, choices):
+            return self.params[name]
+
+        def suggest_float(self, name, *args, **kwargs):
+            return self.params[name]
+
+        suggest_int = suggest_float
+
+    parsed = hpo._load_space(space_path)
+    runs = trial_runs(log_dir)
+    trials, prune_ok, objective_ok = [], [], []
+    for rec in stored:
+        try:
+            hpo.get_hp_params(Replay(rec["params"]), parsed)
+            arm = False
+        except hpo.TrialPruned:
+            arm = True
+        prune_ok.append(arm == (rec["state"] == "PRUNED"))
+        watched = next(r for r in records if r["number"] == rec["number"])
+        trial = {"phase": "hpo_ncf_trial", **watched, "prune_arm": arm}
+        if rec["state"] == "COMPLETE":
+            run, metrics, _ = runs[rec["number"]]
+            n20 = metrics.get("val/n20", [])
+            trial.update(run_status=run.status, val_n20=n20, epoch_s=metrics.get("epoch_time"),
+                         factor_num=run.params["factor_num"],
+                         num_layers=run.params["num_layers"],
+                         train_batch_size=run.params["train_batch_size"],
+                         item_init_emb_path=os.path.basename(run.params["item_init_emb_path"]))
+            objective_ok.append(run.status == "FINISHED" and len(n20) == 1
+                                and abs(rec["value"] - n20[0]) <= 1e-6)
+        emit(trial)
+        trials.append(trial)
+    n_complete = sum(r["state"] == "COMPLETE" for r in stored)
+    checks = {
+        "exports": all(r["export_shape"] == [art.num_nodes, h] and r["finite"]
+                       and r["item_table_shape"] == [art.num_items, h]
+                       for h, r in remap.items()),
+        "two_complete": n_complete == 2,
+        "pruned_arms_recorded_as_pruned": all(prune_ok),
+        "should_prune_asked_each_epoch_never_true": len(asked) == n_complete
+        and not any(asked),
+        "objective_is_logged_val_n20": len(objective_ok) == 2 and all(objective_ok),
+        "no_kernel_in_ncf_trials": not any(v for r in records for v in r["launches"].values()),
+    }
+    row = {"phase": "hpo_ncf", "exports": remap, "export_invocations": invocations,
+           "trials_json_states": [r["state"] for r in stored],
+           "should_prune_answers": asked, "memory_base_bytes": base["memory"],
+           "memory_over_base_bytes": [r["memory_allocated"] - base["memory"] for r in records],
+           "checks": checks, "ok": all(checks.values())}
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"hp-tuning (NCF) failed: {checks}")
+    return {"row": row, "trials": trials}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "pmgt_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository",
@@ -2141,6 +2662,10 @@ def main() -> int:
     # chunk and a serving tile)
     checks += [check_k1(6, 384, 32, torch.bfloat16, km) for km in (False, True)]
     checks += [check_k1(6, n, 128, torch.bfloat16, False) for n in (4000, 65536)]
+    # bf16 at the PMGT search space's shapes (hp-tuning: batch 32, P = 10):
+    # d = 64, and d = 32 with β = 0 (no cosine branch), 0.25 and 1
+    tuning = [(64, 0.5), (32, 0.0), (32, 0.25), (32, 1.0)]
+    checks += [check_k1(6, 384, d, torch.bfloat16, True, beta) for d, beta in tuning]
     results["k1_checks"] = checks
 
     # ---- 5. K2 against its plain version (N=256: PMGT_NCF's training step)
@@ -2150,6 +2675,7 @@ def main() -> int:
     # PMGT_NCF (d = 128, 128 lanes), dropout on
     k2_bf16 = [check_k2(6, 384, 32, km, torch.bfloat16) for km in (False, True)]
     k2_bf16.append(check_k2(6, 128, 128, True, torch.bfloat16))
+    k2_bf16 += [check_k2(6, 384, d, True, torch.bfloat16, beta) for d, beta in tuning]
     results["k2_checks"] = k2_checks + k2_bf16
 
     # ---- 5b. untimed sweep of all four kernels over edge shapes ---------
@@ -2276,6 +2802,14 @@ def main() -> int:
     # last profiler session, so it comes after the profiled passes)
     options = run_options(cli_data, os.path.join(HERE, "outputs", "chip_smoke_options"))
 
+    # ---- 17-19. the data and tuning commands: preprocess a review dump,
+    # then hp-tuning on it (PMGT trials on K1/K2; the NeuMF-PMGT search)
+    pre = run_preprocess(os.path.join(HERE, "outputs", "chip_smoke_preprocess"), DUMP)
+    hpo_pmgt = run_hpo_pmgt(pre["data_dir"], os.path.join(HERE, "outputs", "chip_smoke_hpo_pmgt"),
+                            pre["art"])
+    hpo_ncf = run_hpo_ncf(pre["data_dir"], os.path.join(HERE, "outputs", "chip_smoke_hpo_ncf"),
+                          pre["art"])
+
     # ---- summary ---------------------------------------------------------
     # Each kernel at its main path's shape (K1/K2 the training lanes, K3/K4
     # the public op at 3,072 lanes) with keep masks (dropout on); launches
@@ -2296,6 +2830,8 @@ def main() -> int:
     pub_f32_launches = summed(pub, lambda n: n == "train_f32_policy")
     pub_ncf_launches = summed(pub_ncf["row"]["invocations"])
     opt_launches = summed(options["invocations"])
+    hpo_launches = hpo_pmgt["row"]["launches"]
+    export_launches = summed(hpo_ncf["row"]["export_invocations"])
     kernels = []
     for name, source, replaces, row, rows, launches in (
         ("dual_attention_fwd_sm", K1_SOURCE, K1_REPLACES, pick(checks, 3072),
@@ -2309,7 +2845,9 @@ def main() -> int:
           "published_pmgt_bf16": pub_launches["k1"],
           "published_pmgt_f32_policy": pub_f32_launches["k1"],
           "published_pmgt_ncf_bf16": pub_ncf_launches["k1"],
-          "options": opt_launches["k1"]}),
+          "options": opt_launches["k1"],
+          "hpo_pmgt_trials": hpo_launches["k1"],
+          "hpo_ncf_exports": export_launches["k1"]}),
         ("dual_attention_bwd_sm", K2_SOURCE, K2_REPLACES, pick(k2_checks, 3072), k2_checks,
          {"serving": kern["row"]["k2_launches"], "training": train["k2_launches"],
           "train_pmgt_cli": cli_launches["k2"],
@@ -2320,7 +2858,9 @@ def main() -> int:
           "published_pmgt_bf16": pub_launches["k2"],
           "published_pmgt_f32_policy": pub_f32_launches["k2"],
           "published_pmgt_ncf_bf16": pub_ncf_launches["k2"],
-          "options": opt_launches["k2"]}),
+          "options": opt_launches["k2"],
+          "hpo_pmgt_trials": hpo_launches["k2"],
+          "hpo_ncf_exports": export_launches["k2"]}),
         ("dual_attention_fwd_bm", K1_SOURCE, K3_REPLACES, pick(k3_checks, 3072),
          [r for r in k3_checks if r["dtype"] == "float32"],
          {"public_op": public["launches"]["k3"]}),
@@ -2353,10 +2893,10 @@ def main() -> int:
     # bf16 operands at the published shapes: (warm ms, cold ms, bound ms at
     # 2-byte operands, max abs err, its limit)
     bf16 = lambda r: [*at(r), r["max_abs_err"], r["limit"]]  # noqa: E731
-    kernels[0]["bf16"] = {f"d{r['d']}_N{r['N']}{'_keep' if r['keep_masks'] else ''}": bf16(r)
-                          for r in checks if r["dtype"] == "bfloat16"}
-    kernels[1]["bf16"] = {f"d{r['d']}_N{r['N']}{'_keep' if r['keep_masks'] else ''}": bf16(r)
-                          for r in k2_bf16}
+    key = lambda r: (f"d{r['d']}_N{r['N']}{'_keep' if r['keep_masks'] else ''}"  # noqa: E731
+                     + ("" if r["beta"] == 0.5 else f"_beta{r['beta']:g}"))
+    kernels[0]["bf16"] = {key(r): bf16(r) for r in checks if r["dtype"] == "bfloat16"}
+    kernels[1]["bf16"] = {key(r): bf16(r) for r in k2_bf16}
     if any(k["launches"] == 0 for k in kernels):
         raise RuntimeError(f"a kernel was not launched on its path: {kernels}")
     results.update(kernels=kernels, slice_kernel=kern["row"],
@@ -2365,6 +2905,7 @@ def main() -> int:
                    pmgt_ncf=pncf["row"], dcn=dcn, downstream_cli=down_cli,
                    published_pmgt=published["row"], published_pmgt_ncf=pub_ncf["row"],
                    options=options, downstream_profile=down_busy,
+                   preprocess=pre["row"], hpo_pmgt=hpo_pmgt, hpo_ncf=hpo_ncf,
                    command_s=time.perf_counter() - T_START)
     emit({"phase": "command_time", "seconds": results["command_s"]})
     os.makedirs(os.path.join(HERE, "outputs"), exist_ok=True)

@@ -1,10 +1,21 @@
 """Data commands of the port's command line (counterpart of
-``pmgt_tpu/cli/data_cmds.py``): ``make-synthetic`` writes a synthetic
-dataset in the native artifact format, which both packages load."""
+``pmgt_tpu/cli/data_cmds.py``), with the JAX commands' options and
+defaults:
+
+- ``make-synthetic`` writes a synthetic dataset in the native artifact
+  format, which both packages load;
+- ``preprocess`` turns a raw review dump into native artifacts
+  (``data/preprocess.run_preprocess``);
+- ``scrape-images`` downloads the product images a metadata dump names
+  (``data/ingest.py``).
+
+None of them touches the card."""
 from __future__ import annotations
 
 import argparse
 import logging
+
+from pmgt_tpu_torch.cli.main import _existing_path
 
 logger = logging.getLogger("pmgt_tpu_torch")
 
@@ -62,4 +73,85 @@ def make_synthetic(ns: argparse.Namespace) -> None:
         art.num_nodes,
         art.num_users,
         len(art.train_pairs),
+    )
+
+
+def add_preprocess(sub) -> None:
+    p = sub.add_parser(
+        "preprocess",
+        help="offline preprocessing: reviews -> item graph + splits + features",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    a = p.add_argument
+    a("--raw-dir", required=True,
+      help="directory with reviews.json[.gz] and optional metadata "
+      "(created by --download when absent)")
+    a("--out-dir", required=True)
+    a("--dataset-name", required=True)
+    a("--min-common-users", type=int, default=3)
+    a("--split-date", default="2015-01-01")
+    a("--test-size", type=float, default=0.2)
+    a("--seed", type=int, default=0)
+    a("--extract-features", action=argparse.BooleanOptionalAction, default=False,
+      help="fill the feature tables from pre-extracted <out-dir>/<dataset-name>_"
+      "{visual,textual}_feats.npz (the Inception-v4/BERT extractors are not "
+      "ported: without the file a modality keeps random rows)")
+    a("--text-model", default="bert-base-uncased",
+      help="textual extractor's name (named in the fallback warning)")
+    a("--image-model", default="inception_v4",
+      help="visual extractor's name (named in the fallback warning)")
+    a("--feature-device", default="cpu",
+      help="unused: the extractors are not ported (kept for compatibility)")
+    a("--download", action="store_true",
+      help="download the Amazon 5-core dump when reviews are absent")
+    p.set_defaults(handler=preprocess)
+
+
+def preprocess(ns: argparse.Namespace):
+    """The artifacts, also saved under ``<out-dir>/<dataset-name>``."""
+    from pmgt_tpu_torch.data.preprocess import run_preprocess
+
+    return run_preprocess(
+        raw_dir=ns.raw_dir,
+        out_dir=ns.out_dir,
+        dataset_name=ns.dataset_name,
+        min_common_users=ns.min_common_users,
+        split_date=ns.split_date,
+        test_size=ns.test_size,
+        seed=ns.seed,
+        extract_features=ns.extract_features,
+        text_model=ns.text_model,
+        image_model=ns.image_model,
+        download=ns.download,
+    )
+
+
+def add_scrape_images(sub) -> None:
+    p = sub.add_parser(
+        "scrape-images",
+        help="parallel product-image download with exponential backoff",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    a = p.add_argument
+    a("--meta-path", type=_existing_path, required=True,
+      help="metadata dump (one JSON per line) with asin + image urls")
+    a("--image-dir", required=True)
+    a("--max-workers", type=int, default=8)
+    a("--max-retries", type=int, default=4)
+    a("--backoff", type=float, default=0.5)
+    p.set_defaults(handler=scrape_images)
+
+
+def scrape_images(ns: argparse.Namespace):
+    """(downloaded or present, failed) counts over the image URLs."""
+    from pmgt_tpu_torch.data import ingest
+
+    urls = ingest.load_image_urls(ns.meta_path)
+    logger.info("found image urls for %d items", len(urls))
+    return ingest.scrape_images(
+        urls,
+        ns.image_dir,
+        max_workers=ns.max_workers,
+        max_retries=ns.max_retries,
+        backoff=ns.backoff,
     )

@@ -2,7 +2,8 @@
 built on ``argparse``:
 
     python -m pmgt_tpu_torch.cli.main [--device cuda|cpu] [--save-args F] \\
-        {train-pmgt,train-ncf,train-dcn,train-pmgt-ncf,runs,make-synthetic} ...
+        {train-pmgt,train-ncf,train-dcn,train-pmgt-ncf,runs,hp-tuning,
+         make-synthetic,preprocess,scrape-images} ...
 
 (or the ``pmgt-tpu-torch`` console script). The four training commands
 take every option of the JAX package's commands, with the same names and
@@ -17,6 +18,8 @@ stays out of the saved arguments. ``train_model`` is the workload
 dispatcher: it finalizes the status (FINISHED or FAILED) only of a run
 this invocation created or trained; ``--mode eval`` or ``inference``
 against an existing run leaves that run's status as it was.
+``hp-tuning`` (``cli/hpo.py``) runs each trial through ``train_model``;
+the data commands are in ``cli/data_cmds.py``.
 """
 from __future__ import annotations
 
@@ -274,12 +277,13 @@ def _add_runs(sub) -> None:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    from pmgt_tpu_torch.cli import data_cmds
+    from pmgt_tpu_torch.cli import data_cmds, hpo
 
     parser = argparse.ArgumentParser(
         prog="pmgt-tpu-torch",
         description="PMGT on PyTorch/CUDA: pre-training, embedding export, "
-        "the downstream recommenders (NCF, DCN, PMGT_NCF) and the run registry",
+        "the downstream recommenders (NCF, DCN, PMGT_NCF), hyperparameter "
+        "tuning, preprocessing and the run registry",
     )
     parser.add_argument("--save-args", default=None,
                         help="save the resolved arguments to a JSON file and exit")
@@ -292,7 +296,10 @@ def build_parser() -> argparse.ArgumentParser:
     _add_train_dcn(sub)
     _add_train_pmgt_ncf(sub)
     _add_runs(sub)
+    hpo.add_hp_tuning(sub)
     data_cmds.add_make_synthetic(sub)
+    data_cmds.add_preprocess(sub)
+    data_cmds.add_scrape_images(sub)
     return parser
 
 
@@ -308,30 +315,44 @@ def _make_args(raw: Dict[str, Any]) -> TrainArgs:
     return TrainArgs(**base, extra=extra)
 
 
-def _train(train_name: str, ns: argparse.Namespace):
-    raw = {k: v for k, v in vars(ns).items()
-           if k not in ("save_args", "device", "command", "handler")}
+def train_args(raw: Dict[str, Any]) -> TrainArgs:
+    """The ``TrainArgs`` of a training command's options, or of an
+    hp-tuning trial's train config with its suggestions; raises
+    ``NotImplementedError`` for the multi-host options."""
     multi_host = {k: raw[k] for k in MULTI_HOST if raw.get(k) is not None}
-    args = _make_args(raw)
-    if ns.save_args:
-        args.save(ns.save_args)
-        logger.info("saved args to %s", ns.save_args)
-        return None
     if multi_host:
         raise NotImplementedError(
             f"multi-host options {sorted(multi_host)} are not ported to "
             "pmgt_tpu_torch yet (ROADMAP.md §1, multi-GPU)"
         )
-    return train_model(train_name, args, device=ns.device)
+    return _make_args(dict(raw))
+
+
+def _train(train_name: str, ns: argparse.Namespace):
+    raw = {k: v for k, v in vars(ns).items()
+           if k not in ("save_args", "device", "command", "handler")}
+    if ns.save_args:
+        _make_args(raw).save(ns.save_args)
+        logger.info("saved args to %s", ns.save_args)
+        return None
+    return train_model(train_name, train_args(raw), device=ns.device)
 
 
 @log_elapsed_time
-def train_model(train_name: str, args: TrainArgs, device: str = "cuda"):
+def train_model(
+    train_name: str,
+    args: TrainArgs,
+    device: str = "cuda",
+    is_hptuning: bool = False,
+    trial=None,
+    enable_trial_pruning: bool = False,
+):
     """The workload contract's dispatch for ``train_name`` in {"pmgt",
     "ncf", "dcn", "pmgt_ncf"}: check, seed, data, model, run, then train /
-    evaluate / export by ``args.mode``. (The JAX package's hp-tuning
-    knobs, ``is_hptuning`` and trial pruning, come with the hp-tuning
-    command, which is not ported.)"""
+    evaluate / export by ``args.mode``. Under hp-tuning (``is_hptuning``)
+    ``test`` evaluates the validation split and labels it ``test/``; the
+    task gets ``trial`` (for ``should_prune``) only with
+    ``enable_trial_pruning``."""
     import importlib
 
     if train_name not in ("pmgt", "ncf", "dcn", "pmgt_ncf"):
@@ -342,7 +363,7 @@ def train_model(train_name: str, args: TrainArgs, device: str = "cuda"):
     trainer.check_args(args)
     trainer.init_run(args)
     trainer.init_dataloader(args, ctx)
-    trainer.init_model(args, ctx)
+    trainer.init_model(args, ctx, trial=trial if enable_trial_pruning else None)
 
     registry = RunRegistry(args.log_dir)
     if args.run_id is not None:
@@ -373,7 +394,7 @@ def train_model(train_name: str, args: TrainArgs, device: str = "cuda"):
                 trainer.train(args, ctx, registry, run)
             else:
                 logger.info("Eval mode")
-            out = trainer.test(args, ctx, registry, run)
+            out = trainer.test(args, ctx, registry, run, is_hptuning=is_hptuning)
             logger.info("test results: %s", out)
     except Exception:
         if owns_status:
@@ -439,8 +460,9 @@ def _runs(ns: argparse.Namespace) -> None:
 def main(argv: Optional[Sequence[str]] = None):
     """Parse ``argv`` (default: ``sys.argv[1:]``) and run the command.
     Returns what the command returns: a training command's test metrics
-    or its export (PMGT embeddings, a downstream model's top-k), None for
-    the others."""
+    or its export (PMGT embeddings, a downstream model's top-k),
+    hp-tuning's best trial, preprocess's artifacts, scrape-images' (done,
+    failed) counts; None for the others."""
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",

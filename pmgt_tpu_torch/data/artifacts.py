@@ -3,8 +3,11 @@ of ``pmgt_tpu/data/artifacts.py``).
 
 The native format is compressed npz + json: the padded-CSR graph, the
 init embedding tables, the interaction splits and metadata. The same
-files load in both packages. The reference-format loader
-(``graph.gpickle`` + joblib encoders) is not ported yet.
+files load in both packages. ``load_artifacts`` also reads the reference's
+layout (``graph.gpickle`` + joblib label encoders + ``{visual,textual}_
+init_emb.npy`` + ``train.json`` / ``test.json``); that loader imports
+pickle, joblib and pandas, and the pickle needs networkx, inside the
+function: a machine without them raises ``ImportError`` there.
 
 ``load_node_init_emb`` maps an exported PMGT node-embedding table into the
 downstream tasks' item-id space.
@@ -18,7 +21,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from pmgt_tpu_torch.graph.container import PaddedGraph
+from pmgt_tpu_torch.graph.container import PaddedGraph, from_edges
 
 _META_FILE = "meta.json"
 _NATIVE_FORMAT = "pmgt_tpu-native-v1"
@@ -108,18 +111,75 @@ def _load_native(d: str) -> DatasetArtifacts:
     )
 
 
+def _read_pairs_json(path, user_encoder, item_encoder) -> np.ndarray:
+    """A reviewerID/asin dataframe json → (user, item) int32 pairs encoded
+    by the run's label encoders."""
+    import pandas as pd
+
+    df = pd.read_json(path)
+    users = user_encoder.transform(df["reviewerID"].to_numpy())
+    items = item_encoder.transform(df["asin"].to_numpy())
+    return np.stack([users, items], axis=1).astype(np.int32)
+
+
+def _load_reference(d: str) -> DatasetArtifacts:
+    """Load the reference's on-disk layout (module docstring). The graph's
+    labelled nodes are relabelled through ``node_encoder`` to 0..N-1, then
+    shifted by the two special ids inside ``from_edges``.
+
+    SECURITY: ``graph.gpickle`` is unpickled and the encoders go through
+    ``joblib.load``: both execute arbitrary code from the data directory
+    (inherent to the reference's artifact contract). Only point this at
+    trusted dataset directories.
+    """
+    import pickle
+
+    import joblib
+
+    with open(os.path.join(d, "graph.gpickle"), "rb") as f:
+        g = pickle.load(f)
+    node_encoder = joblib.load(os.path.join(d, "node_encoder"))
+    user_encoder = joblib.load(os.path.join(d, "user_encoder"))
+    item_encoder = joblib.load(os.path.join(d, "item_encoder"))
+    node_classes = np.asarray(node_encoder.classes_)
+    node_idx = {label: i for i, label in enumerate(node_classes.tolist())}
+
+    edges = [(node_idx[u], node_idx[v], float(data.get("weight", 1.0)))
+             for u, v, data in g.edges(data=True)]
+    graph = from_edges(len(node_classes), edges)
+
+    feats = [
+        np.load(os.path.join(d, f"{m}_init_emb.npy"))
+        for m in ("visual", "textual")
+    ]
+    train_pairs = _read_pairs_json(
+        os.path.join(d, "train.json"), user_encoder, item_encoder
+    )
+    test_pairs = _read_pairs_json(
+        os.path.join(d, "test.json"), user_encoder, item_encoder
+    )
+    return DatasetArtifacts(
+        graph=graph,
+        feat_init_embs=feats,
+        train_pairs=train_pairs,
+        test_pairs=test_pairs,
+        num_users=len(user_encoder.classes_),
+        num_items=len(item_encoder.classes_),
+        item_classes=np.asarray(item_encoder.classes_),
+        node_classes=node_classes,
+    )
+
+
 def load_artifacts(data_dir: str, dataset_name: str) -> DatasetArtifacts:
-    """Load ``<data_dir>/<dataset_name>`` in the native format."""
+    """Load ``<data_dir>/<dataset_name>`` in whichever format is present."""
     d = os.path.join(data_dir, dataset_name)
     if os.path.exists(os.path.join(d, _META_FILE)):
         return _load_native(d)
     if os.path.exists(os.path.join(d, "graph.gpickle")):
-        raise NotImplementedError(
-            f"{d} holds reference-format artifacts; their loader is not "
-            "ported yet"
-        )
+        return _load_reference(d)
     raise FileNotFoundError(
-        f"no dataset artifacts under {d}: expected native ({_META_FILE})"
+        f"no dataset artifacts under {d}: expected native ({_META_FILE}) "
+        "or reference (graph.gpickle) layout"
     )
 
 

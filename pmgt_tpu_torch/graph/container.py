@@ -229,7 +229,19 @@ def _pack_alias(
 def _build_alias_tables(
     nbr_logits: np.ndarray, degrees: np.ndarray
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Vose's alias method per node over softmax(edge weights). O(E)."""
+    """Vose's alias method per node over softmax(edge weights), by the
+    native builder (``pmgt_tpu_torch/native/alias_builder.cpp``), as the
+    JAX package builds them; bit-equal to ``build_alias_tables_python``."""
+    from pmgt_tpu_torch.native import build_alias_tables_native
+
+    return build_alias_tables_native(nbr_logits, degrees)
+
+
+def build_alias_tables_python(
+    nbr_logits: np.ndarray, degrees: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The plain version of ``_build_alias_tables``: Vose's alias method
+    per node over softmax(edge weights) in a Python loop. O(E)."""
     n, d = nbr_logits.shape
     alias_prob = np.ones((n, d), dtype=np.float32)
     alias_idx = np.zeros((n, d), dtype=np.int32)

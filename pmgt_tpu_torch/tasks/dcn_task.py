@@ -47,8 +47,9 @@ EVAL_CHUNKS_PER_CALL = 64  # loss chunks scored per model call
 class DCNTask(InteractionTaskBase):
     frozen_param = "item_embeddings"
 
-    def __init__(self, args, artifacts, train_data, valid_data, test_data, device="cuda"):
-        super().__init__(args, train_data, valid_data, test_data, device)
+    def __init__(self, args, artifacts, train_data, valid_data, test_data, device="cuda",
+                 trial=None):
+        super().__init__(args, train_data, valid_data, test_data, device, trial)
         self.artifacts = artifacts
         e = args.extra
         self.model = DCN(
@@ -137,9 +138,9 @@ def init_dataloader(args: TrainArgs, ctx: Dict[str, Any]) -> None:
                 len(ctx["test_data"].pairs))
 
 
-def init_model(args: TrainArgs, ctx: Dict[str, Any]) -> None:
+def init_model(args: TrainArgs, ctx: Dict[str, Any], trial=None) -> None:
     ctx["task"] = DCNTask(args, ctx["artifacts"], ctx["train_data"], ctx["valid_data"],
-                          ctx["test_data"], device=ctx.get("device", "cuda"))
+                          ctx["test_data"], device=ctx.get("device", "cuda"), trial=trial)
 
 
 def inference(args: TrainArgs, ctx: Dict[str, Any], registry, run) -> Dict[str, np.ndarray]:

@@ -86,9 +86,10 @@ class InteractionTaskBase:
 
     def __init__(self, args: TrainArgs, train_data: InteractionData,
                  valid_data: InteractionData, test_data: InteractionData,
-                 device="cuda"):
+                 device="cuda", trial=None):
         self.device = resolve_device(device)
         self.args = args
+        self.trial = trial  # an hp-tuning trial, with pruning enabled
         self.train_data = train_data
         self.valid_data = valid_data
         self.test_data = test_data
@@ -149,9 +150,12 @@ class InteractionTaskBase:
         self.optimizer.load_state_dict(state["optimizer"])
 
     def should_prune(self, value: float, epoch: int) -> bool:
-        """Never: trial pruning belongs to the hp-tuning command, which is
-        not ported."""
-        return False
+        """Report the epoch's monitored value to the hp-tuning trial and
+        return its pruning decision (False without a trial)."""
+        if self.trial is None:
+            return False
+        self.trial.report(value, epoch)
+        return bool(self.trial.should_prune())
 
     def train_batches(self, epoch: int) -> Iterator[Tuple[torch.Tensor, ...]]:
         """(users, items, labels, generator) for each full batch of the
@@ -371,10 +375,16 @@ def train(args: TrainArgs, ctx: Dict[str, Any], registry, run) -> Dict[str, floa
     )
 
 
-def test(args: TrainArgs, ctx: Dict[str, Any], registry, run) -> Dict[str, float]:
-    """The best checkpoint's metrics on the test split."""
+def test(args: TrainArgs, ctx: Dict[str, Any], registry, run,
+         is_hptuning: bool = False) -> Dict[str, float]:
+    """The best checkpoint's metrics on the test split; under hp-tuning
+    on the validation split, labelled ``test/`` (the reference's leakage
+    guard: a search never reads the test split)."""
     task = ctx["task"]
     restore_eval_params(task, registry, run, args.run_id)
+    if is_hptuning:
+        metrics = task.evaluate("valid")
+        return {k.replace("val/", "test/"): v for k, v in metrics.items()}
     return task.evaluate("test")
 
 

@@ -48,8 +48,9 @@ EVAL_PAIRS_PER_CALL = 1 << 21
 class NCFTask(InteractionTaskBase):
     frozen_param = "embed_item_MLP"
 
-    def __init__(self, args, artifacts, train_data, valid_data, test_data, device="cuda"):
-        super().__init__(args, train_data, valid_data, test_data, device)
+    def __init__(self, args, artifacts, train_data, valid_data, test_data, device="cuda",
+                 trial=None):
+        super().__init__(args, train_data, valid_data, test_data, device, trial)
         self.artifacts = artifacts
         e = args.extra
         self.model = NCF(
@@ -128,9 +129,9 @@ def init_dataloader(args: TrainArgs, ctx: Dict[str, Any]) -> None:
     )
 
 
-def init_model(args: TrainArgs, ctx: Dict[str, Any]) -> None:
+def init_model(args: TrainArgs, ctx: Dict[str, Any], trial=None) -> None:
     ctx["task"] = NCFTask(args, ctx["artifacts"], ctx["train_data"], ctx["valid_data"],
-                          ctx["test_data"], device=ctx.get("device", "cuda"))
+                          ctx["test_data"], device=ctx.get("device", "cuda"), trial=trial)
 
 
 def inference(args: TrainArgs, ctx: Dict[str, Any], registry, run) -> Dict[str, np.ndarray]:

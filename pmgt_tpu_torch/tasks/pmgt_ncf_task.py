@@ -83,8 +83,9 @@ def eval_ctx_seed(seed: int) -> int:
 
 
 class PMGTNCFTask(InteractionTaskBase):
-    def __init__(self, args, artifacts, train_data, valid_data, test_data, device="cuda"):
-        super().__init__(args, train_data, valid_data, test_data, device)
+    def __init__(self, args, artifacts, train_data, valid_data, test_data, device="cuda",
+                 trial=None):
+        super().__init__(args, train_data, valid_data, test_data, device, trial)
         self.artifacts = artifacts
         e = args.extra
         self.config = PMGTConfig(
@@ -191,9 +192,9 @@ def init_dataloader(args: TrainArgs, ctx: Dict[str, Any]) -> None:
     ctx.update(split_interactions(args, artifacts))
 
 
-def init_model(args: TrainArgs, ctx: Dict[str, Any]) -> None:
+def init_model(args: TrainArgs, ctx: Dict[str, Any], trial=None) -> None:
     ctx["task"] = PMGTNCFTask(args, ctx["artifacts"], ctx["train_data"], ctx["valid_data"],
-                              ctx["test_data"], device=ctx.get("device", "cuda"))
+                              ctx["test_data"], device=ctx.get("device", "cuda"), trial=trial)
 
 
 def inference(args: TrainArgs, ctx: Dict[str, Any], registry, run) -> Dict[str, np.ndarray]:

@@ -116,9 +116,11 @@ class PMGTTask:
         train_nodes: np.ndarray,
         valid_nodes: np.ndarray,
         device: Union[str, torch.device] = "cuda",
+        trial=None,
     ):
         self.device = resolve_device(device)
         self.args = args
+        self.trial = trial  # an hp-tuning trial, with pruning enabled
         self.artifacts = artifacts
         self.train_nodes = np.asarray(train_nodes, np.int64)
         self.valid_nodes = np.asarray(valid_nodes, np.int64)
@@ -257,9 +259,12 @@ class PMGTTask:
         self._step_count = int(state["step_count"])
 
     def should_prune(self, value: float, epoch: int) -> bool:
-        """Never: trial pruning belongs to the hp-tuning command, which is
-        not ported."""
-        return False
+        """Report the epoch's monitored value to the hp-tuning trial and
+        return its pruning decision (False without a trial)."""
+        if self.trial is None:
+            return False
+        self.trial.report(value, epoch)
+        return bool(self.trial.should_prune())
 
     def _epoch_schedule(self, epoch: int) -> np.ndarray:
         """The epoch's shuffled target ids (the JAX package's derivation)."""
@@ -527,11 +532,12 @@ def _restore_params_from_run(args: TrainArgs) -> None:
             args.extra[name] = params[name]
 
 
-def init_model(args: TrainArgs, ctx: Dict[str, Any]) -> None:
-    """``ctx["task"]``: a ``PMGTTask`` on ``ctx.get("device", "cuda")``."""
+def init_model(args: TrainArgs, ctx: Dict[str, Any], trial=None) -> None:
+    """``ctx["task"]``: a ``PMGTTask`` on ``ctx.get("device", "cuda")``,
+    reporting to the hp-tuning ``trial`` if given."""
     ctx["task"] = PMGTTask(
         args, ctx["artifacts"], ctx["train_nodes"], ctx["valid_nodes"],
-        device=ctx.get("device", "cuda"),
+        device=ctx.get("device", "cuda"), trial=trial,
     )
 
 
@@ -570,13 +576,18 @@ def train(args: TrainArgs, ctx: Dict[str, Any], registry, run) -> Dict[str, floa
     )
 
 
-def test(args: TrainArgs, ctx: Dict[str, Any], registry, run) -> Dict[str, float]:
+def test(args: TrainArgs, ctx: Dict[str, Any], registry, run,
+         is_hptuning: bool = False) -> Dict[str, float]:
     """Evaluate the best checkpoint on the validation nodes with the test
-    phase's draw (the reference reuses valid as test for PMGT)."""
+    phase's draw (the reference reuses valid as test for PMGT); under
+    hp-tuning with the validation phase's draw, labelled ``test/``."""
     task: PMGTTask = ctx["task"]
     path = locate_eval_ckpt(registry, run, args.run_id)
     if path is not None:
         _restore_params_only(path, task)
+    if is_hptuning:
+        metrics = task.evaluate("valid")
+        return {k.replace("val/", "test/"): v for k, v in metrics.items()}
     return task.evaluate("test")
 
 

@@ -247,3 +247,92 @@ def test_published_training_scripts_parse_and_pass_check_args(tmp_path, script):
     assert args.mp_enabled and args.model_name and args.dataset_name == "TG"
     name = argv[0][len("train-"):].replace("-", "_")
     importlib.import_module(f"pmgt_tpu_torch.tasks.{name}_task").check_args(args)
+
+
+# ---- hp-tuning and the data commands -----------------------------------------
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HPO_SCRIPTS = sorted(f[:-3] for f in os.listdir(os.path.join(ROOT, "scripts"))
+                     if f.startswith("run_hpo_"))
+
+
+def _jax_command(name):
+    """The JAX package's click command ``name`` (its module registers it)."""
+    from pmgt_tpu.cli import hpo as _jax_hpo  # noqa: F401  (registers hp-tuning)
+
+    return jax_cli.commands[name]
+
+
+def _port_params(ns):
+    return {k: v for k, v in vars(ns).items()
+            if k not in ("save_args", "device", "command", "handler")}
+
+
+def test_every_hpo_script_is_checked():
+    assert len(HPO_SCRIPTS) == 9
+
+
+@pytest.mark.parametrize("script", HPO_SCRIPTS)
+def test_hpo_scripts_parse_to_the_jax_commands_params(tmp_path, monkeypatch, script):
+    """Each ``scripts/run_hpo_*.sh`` argument list (``$1`` at its default)
+    parses in the port to the parameters the JAX click command takes."""
+    import re
+
+    monkeypatch.chdir(ROOT)
+    with open(os.path.join(ROOT, "scripts", f"{script}.sh")) as f:
+        text = re.sub(r'"\$\{1:-(\d+)\}"', r"\1", f.read())
+    (tmp_path / "script.sh").write_text(text)
+    argv = _script_argv(str(tmp_path / "script.sh"), "unused")
+    assert argv[0] == "hp-tuning"
+    ns = build_parser().parse_args(["--device", "cpu", *argv])
+    want = _jax_command("hp-tuning").make_context("hp-tuning", argv[1:]).params
+    assert _port_params(ns) == want
+    assert ns.device == "cpu" and ns.n_trials in (20, 50)
+
+
+@pytest.mark.parametrize("command,argv", [
+    ("hp-tuning", ["--hp-config-path", "config/hpo/hpo_pmgt_params.yaml",
+                   "--train-config-path", "config/hpo/train_pmgt_params.json"]),
+    ("hp-tuning", ["--hp-config-path", "config/hpo/hpo_ncf_params.yaml",
+                   "--train-config-path", "config/hpo/train_ncf_params.json",
+                   "--n-trials", "3", "--study-name", "s", "--storage-path", "/x/y.db",
+                   "--train-name", "pmgt_ncf", "--enable-trial-pruning"]),
+    ("preprocess", ["--raw-dir", "r", "--out-dir", "o", "--dataset-name", "TG"]),
+    ("preprocess", ["--raw-dir", "r", "--out-dir", "o", "--dataset-name", "TG",
+                    "--min-common-users", "2", "--split-date", "2014-01-01",
+                    "--test-size", "0.1", "--seed", "3", "--extract-features",
+                    "--text-model", "t", "--image-model", "i", "--feature-device", "cuda",
+                    "--download"]),
+    ("preprocess", ["--raw-dir", "r", "--out-dir", "o", "--dataset-name", "TG",
+                    "--no-extract-features"]),
+    ("scrape-images", ["--meta-path", "config/hpo/train_ncf_params.json", "--image-dir", "i"]),
+    ("scrape-images", ["--meta-path", "config/hpo/train_ncf_params.json", "--image-dir", "i",
+                       "--max-workers", "2", "--max-retries", "1", "--backoff", "2.5"]),
+])
+def test_option_defaults_equal_the_jax_commands(monkeypatch, command, argv):
+    """Same options, same defaults: the parsed parameters equal the JAX
+    click command's for the same argument list."""
+    monkeypatch.chdir(ROOT)
+    ns = build_parser().parse_args([command, *argv])
+    want = _jax_command(command).make_context(command, list(argv)).params
+    assert _port_params(ns) == want
+
+
+def test_preprocess_command_passes_what_the_jax_command_passes(tmp_path, monkeypatch):
+    """Through ``CliRunner`` (JAX) and ``main`` (port), ``preprocess``
+    hands ``run_preprocess`` the same arguments (the port takes no
+    ``feature_device``: it runs no extractor)."""
+    from pmgt_tpu.data import preprocess as jpre
+    from pmgt_tpu_torch.data import preprocess as tpre
+
+    seen = {}
+    monkeypatch.setattr(jpre, "run_preprocess", lambda **kw: seen.setdefault("jax", kw))
+    monkeypatch.setattr(tpre, "run_preprocess", lambda **kw: seen.setdefault("torch", kw))
+    argv = ["preprocess", "--raw-dir", "r", "--out-dir", "o", "--dataset-name", "VG",
+            "--test-size", "0.3", "--extract-features", "--download"]
+    res = CliRunner().invoke(jax_cli, argv, obj={})
+    assert res.exit_code == 0, res.output
+    main(argv)
+    jax_kw = dict(seen["jax"])
+    assert jax_kw.pop("feature_device") == "cpu"
+    assert seen["torch"] == jax_kw

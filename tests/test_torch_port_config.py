@@ -5,9 +5,11 @@
   training slices read.
 - ``roc_auc`` / ``stable_sigmoid`` agree with the JAX package's copies.
 - ``pmgt_tpu_torch`` (and ``chip_smoke.py``) import neither JAX, click,
-  sklearn nor any module of ``pmgt_tpu`` (the card machine has none of
-  them): checked on the source and by importing every module of the
-  package in a fresh interpreter where those imports fail.
+  sklearn, yaml nor any module of ``pmgt_tpu`` (the card machine has none
+  of them): checked on the source and by importing every module of the
+  package in a fresh interpreter where those imports fail. ``optuna`` is
+  imported only inside the ``try`` of ``cli/hpo.py`` that falls back to the
+  built-in study.
 """
 from __future__ import annotations
 
@@ -26,7 +28,10 @@ from pmgt_tpu_torch.core import config as tconfig
 from pmgt_tpu_torch.metrics import ranking as tranking
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pmgt_tpu", "click", "sklearn")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pmgt_tpu", "click", "sklearn",
+             "yaml", "optuna")
+# (file, module) pairs allowed inside a ``try`` block only
+TRY_ONLY = {("pmgt_tpu_torch/cli/hpo.py", "optuna")}
 
 
 def _fields(cls):
@@ -100,13 +105,19 @@ def test_ranking_metrics_match():
 
 
 def _imported_modules(path):
+    """(module, inside a ``try`` body) of every absolute import in ``path``."""
     with open(path, encoding="utf-8") as f:
         tree = ast.parse(f.read(), path)
+    in_try = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Try):
+            for stmt in node.body:
+                in_try.update(id(n) for n in ast.walk(stmt))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
-            yield from (a.name for a in node.names)
+            yield from ((a.name, id(node) in in_try) for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
-            yield node.module
+            yield node.module, id(node) in in_try
 
 
 def test_port_sources_import_no_jax_and_no_pmgt_tpu():
@@ -115,14 +126,23 @@ def test_port_sources_import_no_jax_and_no_pmgt_tpu():
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
     for new in ("cli/main.py", "cli/data_cmds.py", "train/engine.py",
-                "train/checkpoints.py", "train/registry.py"):
+                "train/checkpoints.py", "train/registry.py", "cli/hpo.py",
+                "cli/space_yaml.py", "data/preprocess.py", "data/ingest.py",
+                "native/__init__.py"):
         assert os.path.join(ROOT, "pmgt_tpu_torch", new) in files
-    bad = [
-        (os.path.relpath(p, ROOT), m)
-        for p in files for m in _imported_modules(p)
-        if m.split(".")[0] in FORBIDDEN
-    ]
+    bad, tried = [], set()
+    for p in files:
+        rel = os.path.relpath(p, ROOT)
+        for m, in_try in _imported_modules(p):
+            top = m.split(".")[0]
+            if top not in FORBIDDEN:
+                continue
+            if in_try and (rel, top) in TRY_ONLY:
+                tried.add((rel, top))
+            else:
+                bad.append((rel, m))
     assert not bad, bad
+    assert tried == TRY_ONLY  # the optional import is where it belongs
 
 
 def test_port_imports_with_jax_unavailable():
