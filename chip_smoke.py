@@ -2,7 +2,9 @@
 holds each against its plain PyTorch version, drives the serving path and
 the training path, and checks what comes out.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # one card
+    python3 chip_smoke.py --multi-card    # only phase 16b's PMGT jobs at 2
+                                          # and 4 NCCL ranks, a card each
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -144,6 +146,27 @@ Phases (any failure raises and the script exits non-zero):
     int8`` and ``--profile-dir`` (a trace file written); step-1 gradients
     with and without checkpointing (f32) within 1e-6·max|g| + 1e-10.
 
+16b. Data parallelism. One NCCL rank on the card, this process joined
+    through the multi-host trio's path (``initialize_distributed``):
+    full-width ``train-pmgt`` with ``--shard-feat-tables
+    --shard-graph-tables`` (one epoch, evaluate, export), then one epoch
+    of ``run_training`` with the trio (engine, run registry,
+    checkpoints), so every collective of the port runs on NCCL. Two gloo
+    ranks sharing the card (NCCL refuses two ranks on one card), spawned
+    by the port's launcher (``core/mesh.launch``): the default model on
+    phase 10's data, 1,536 of the step's 3,072 lanes a rank, with
+    replicated tables and with both shard flags, each against a 1-rank
+    run of the same configuration (this process without a group; the
+    NCCL rank for the sharded one): step losses within rtol 2e-4,
+    parameters after the epoch within rtol 5e-4 + atol 1e-5 and bit-equal
+    across the ranks, val AUC within 2e-4, export within
+    1e-4·max|export|. In the same ranks NCF, DCN and PMGT_NCF (both shard
+    flags) on phase 15's 1,024-user cut, one epoch each against 1 rank:
+    losses within rtol 2e-4, n20 and r20 equal, the served top 100 equal
+    outside near-ties (1e-4·max(1, max|score|)). Each line: backend,
+    ranks, card, each rank's K1/K2 counts (zeroed just before and read
+    just after), the step's time and its all-reduce and row-gather times
+    (CUDA events).
 17. ``preprocess`` through ``main()`` on a seeded review dump in the
     Amazon layout (``write_review_dump``: 12,000 items, 150,000 reviewers,
     940,000 reviews before 2015-01-01 and 60,000 after): node, edge, user
@@ -2039,6 +2062,349 @@ def run_published_pmgt_ncf(art_cut, data_dir: str, root: str) -> dict:
     return {"row": row, "profiled": profiled}
 
 
+# ----------------------------------------------------------------------
+# 16b. data parallelism: one NCCL rank, and two gloo ranks sharing the card
+# ----------------------------------------------------------------------
+
+MR_PMGT_JOBS = (("replicated", {}),
+                ("sharded", {"shard_feat_tables": True, "shard_graph_tables": True}))
+MR_DOWNSTREAM_JOBS = (("ncf", "ncf_task", "NeuMF-end", {}),
+                      ("dcn", "dcn_task", "DCN", {}),
+                      ("pmgt_ncf", "pmgt_ncf_task", "NeuMF-end",
+                       {"shard_feat_tables": True, "shard_graph_tables": True}))
+
+
+def _mr_timed(fn):
+    """(fn(), ms, collective ms by kind, K1/K2 launches): the counts and
+    the collectives' CUDA-event sums zeroed just before and read just
+    after, the card synchronised before the stop."""
+    import torch
+
+    from pmgt_tpu_torch.core import mesh
+
+    zero_launches()
+    mesh.timing_ms()
+    out, ms = timed(fn)
+    launches = read_launches()
+    return out, ms, mesh.timing_ms(), {"k1": launches["k1"], "k2": launches["k2"]}
+
+
+_MR_ARTIFACTS = {}
+
+
+def _mr_artifacts(data_dir: str, name: str):
+    """The dataset ``name`` under ``data_dir``, loaded once a process."""
+    from pmgt_tpu_torch.data.artifacts import load_artifacts
+
+    if (data_dir, name) not in _MR_ARTIFACTS:
+        _MR_ARTIFACTS[(data_dir, name)] = load_artifacts(data_dir, name)
+    return _MR_ARTIFACTS[(data_dir, name)]
+
+
+def _mr_pmgt(data_dir: str, extra: dict) -> dict:
+    """One epoch of train-pmgt (default model, TG-shape data), then
+    evaluate and export, through the workload contract."""
+    from pmgt_tpu_torch.core.config import TrainArgs
+    from pmgt_tpu_torch.tasks import pmgt_task
+
+    args = TrainArgs(seed=0, test_batch_size=256, num_epochs=1, data_dir=data_dir,
+                     dataset_name="TG", extra=dict(extra))
+    ctx = {"device": "cuda", "artifacts": _mr_artifacts(data_dir, "TG")}
+    pmgt_task.check_args(args)
+    pmgt_task.init_dataloader(args, ctx)
+    pmgt_task.init_model(args, ctx)
+    task = ctx["task"]
+    _, draw_ms, draw_coll, _ = _mr_timed(lambda: task.on_epoch_start(0))
+    losses, epoch_ms, coll, train_l = _mr_timed(lambda: task.train_epoch(0).cpu().numpy())
+    (metrics, emb), eval_ms, eval_coll, eval_l = _mr_timed(
+        lambda: (task.evaluate("valid"), task.export_embeddings()))
+    steps = len(losses)
+    return {"losses": losses, "steps": steps, "draw_ms": draw_ms, "draw_collective_ms": draw_coll,
+            "epoch_ms": epoch_ms, "step_ms": epoch_ms / steps,
+            "all_reduce_ms_per_step": coll.get("all_reduce", 0.0) / steps,
+            "row_gather_ms_per_step": coll.get("gather_rows", 0.0) / steps,
+            "train_launches": train_l, "eval_export_ms": eval_ms,
+            "eval_export_collective_ms": eval_coll, "eval_export_launches": eval_l,
+            "metrics": metrics, "emb": emb, "fusion": task.config.fusion_strategy,
+            "params": {k: v.detach().cpu() for k, v in task.model.state_dict().items()}}
+
+
+def _mr_downstream(data_dir: str, module: str, model_name: str, extra: dict) -> dict:
+    """One epoch of a downstream task on the 1,024-user cut, then its
+    validation metrics and the top 100 of every user."""
+    from pmgt_tpu_torch.core.config import TrainArgs
+
+    crit = "auc" if module == "dcn_task" else "n20"
+    args = TrainArgs(seed=0, model_name=model_name, num_epochs=1, early_criterion=crit,
+                     data_dir=data_dir, dataset_name="TGcut", extra=dict(extra))
+    task = task_of(module, args, _mr_artifacts(data_dir, "TGcut"))
+    _, draw_ms, _, _ = _mr_timed(lambda: task.on_epoch_start(0))
+    losses, epoch_ms, coll, train_l = _mr_timed(lambda: task.train_epoch(0).cpu().numpy())
+    serve = {"user_batch": 64, "item_chunk": 1024} if module == "pmgt_ncf_task" else {}
+    (metrics, top), eval_ms, _, eval_l = _mr_timed(
+        lambda: (task.evaluate("valid"), task.export_topk(k=100, **serve)))
+    steps = len(losses)
+    return {"losses": losses, "steps": steps, "draw_ms": draw_ms, "epoch_ms": epoch_ms,
+            "step_ms": epoch_ms / max(steps, 1),
+            "all_reduce_ms_per_step": coll.get("all_reduce", 0.0) / max(steps, 1),
+            "row_gather_ms_per_step": coll.get("gather_rows", 0.0) / max(steps, 1),
+            "train_launches": train_l, "eval_serve_ms": eval_ms, "eval_serve_launches": eval_l,
+            "metrics": metrics, "top": top}
+
+
+def multi_rank_work(pmgt_data: str, cut_data: str, jobs, downstream) -> dict:
+    """The multi_rank phase's work in one rank (or, without a group, in
+    this process): the PMGT jobs, then the downstream jobs."""
+    sys.path.insert(0, HERE)
+    import torch
+
+    from pmgt_tpu_torch.core import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    m = mesh.current_mesh("cuda")
+    mesh.enable_timing()
+    out = {"rank": m.rank, "ranks": m.size, "backend": m.backend,
+           "card": f"cuda:{torch.cuda.current_device()} of {torch.cuda.device_count()}"}
+    for name, extra in jobs:
+        t = time.perf_counter()
+        out[name] = _mr_pmgt(pmgt_data, extra)
+        out[name]["job_s"] = time.perf_counter() - t
+    for name, module, model_name, extra in downstream:
+        t = time.perf_counter()
+        out[name] = _mr_downstream(cut_data, module, model_name, extra)
+        out[name]["job_s"] = time.perf_counter() - t
+    mesh.enable_timing(False)
+    return out
+
+
+def _mr_close(ref: dict, got: dict) -> dict:
+    """A rank's PMGT run against the 1-rank run: step losses (rtol 2e-4),
+    parameters (rtol 5e-4, atol 1e-5), val AUC (2e-4), export (1e-4 of
+    its largest magnitude)."""
+    loss_rel = float(np.max(np.abs(got["losses"] - ref["losses"]) / np.abs(ref["losses"])))
+    param_excess = max(
+        float(((g - r).abs() - (5e-4 * r.abs() + 1e-5)).max())
+        for r, g in ((ref["params"][k].double(), got["params"][k].double()) for k in ref["params"]))
+    auc_diff = abs(got["metrics"]["val/auc"] - ref["metrics"]["val/auc"])
+    emb_diff = float(np.abs(got["emb"] - ref["emb"]).max())
+    emb_scale = float(np.abs(ref["emb"]).max())
+    return {"loss_max_rel_diff": loss_rel, "param_bound_excess": param_excess,
+            "auc_diff": auc_diff, "export_max_abs_diff": emb_diff, "export_max_abs": emb_scale,
+            "ok": (len(got["losses"]) == len(ref["losses"]) and loss_rel <= 2e-4
+                   and param_excess <= 0 and auc_diff <= 2e-4 and emb_diff <= 1e-4 * emb_scale)}
+
+
+def _mr_served_close(ref: dict, got: dict) -> dict:
+    """Served top-100 lists of one run against another's: ids equal except
+    at near-ties (a slot whose id differs has, in the reference list, a
+    neighbour within 1e-4·max(1, max|score|), or is the last slot with the
+    two runs' scores there that close)."""
+    sa, sb = ref["scores"], got["scores"]
+    tol = 1e-4 * max(1.0, float(np.abs(sa[np.isfinite(sa)]).max()))
+    fin = np.isfinite(sa) & np.isfinite(sb)
+    gap = np.full(sa.shape, np.inf)
+    with np.errstate(invalid="ignore"):
+        step = np.abs(np.diff(sa, axis=1))
+    step = np.where(np.isfinite(step), step, np.inf)
+    gap[:, 1:] = np.minimum(gap[:, 1:], step)
+    gap[:, :-1] = np.minimum(gap[:, :-1], step)
+    last = np.where(fin[:, -1], np.abs(sa[:, -1] - np.where(fin[:, -1], sb[:, -1], 0)), np.inf)
+    gap[:, -1] = np.minimum(gap[:, -1], last)
+    differ = ref["item_ids"] != got["item_ids"]
+    return {"slots_differing": int(differ.sum()), "differing_not_near_tie":
+            int((differ & (gap > tol)).sum()), "near_tie_tol": tol,
+            "same_minus_inf": bool((np.isneginf(sa) == np.isneginf(sb)).all())}
+
+
+def run_multi_rank(pmgt_data: str, cut_data: str, log_root: str) -> dict:
+    """Phase 16b: data parallelism. (a) One NCCL rank on the card, this
+    process joined through the multi-host trio's path: the sharded PMGT
+    job, then one epoch of ``run_training`` with the trio (every
+    collective of the port, on NCCL). (b) Two gloo ranks sharing the card,
+    spawned by the port's launcher (``core/mesh.launch``): full-width
+    train-pmgt with replicated tables and with ``--shard-feat-tables
+    --shard-graph-tables``; (c) in the same ranks NCF, DCN and PMGT_NCF
+    (the shard flags for PMGT_NCF) on the 1,024-user cut. Each against a
+    1-rank run of the same configuration: the replicated and downstream
+    jobs in this process, the sharded job on the NCCL rank."""
+    import shutil
+
+    from pmgt_tpu_torch.cli.main import run_training
+    from pmgt_tpu_torch.core import mesh
+    from pmgt_tpu_torch.core.config import TrainArgs
+    from pmgt_tpu_torch.train.registry import RunRegistry
+
+    shutil.rmtree(log_root, ignore_errors=True)
+    t0 = time.perf_counter()
+    mesh.initialize_distributed(f"127.0.0.1:{mesh.free_port()}", 1, 0, device="cuda",
+                                timeout_s=300)
+    try:
+        nccl = multi_rank_work(pmgt_data, cut_data, MR_PMGT_JOBS[1:], ())
+    finally:
+        mesh.stop()
+    args = TrainArgs(seed=0, test_batch_size=256, num_epochs=1, data_dir=pmgt_data,
+                     dataset_name="TG", log_dir=os.path.join(log_root, "nccl"),
+                     extra=dict(MR_PMGT_JOBS[1][1]))
+    mesh.enable_timing()
+    result, ms, coll, launches = _mr_timed(lambda: run_training(
+        "pmgt", args, "cuda", (f"127.0.0.1:{mesh.free_port()}", 1, 0)))
+    mesh.enable_timing(False)
+    nccl["engine"] = {"test": result, "ms": ms, "collective_ms": coll, "launches": launches}
+    nccl_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gloo = mesh.launch(multi_rank_work, 2, (pmgt_data, cut_data, MR_PMGT_JOBS,
+                                            MR_DOWNSTREAM_JOBS),
+                       device="cuda", backend="gloo", timeout_s=400, run_timeout_s=400)
+    gloo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = multi_rank_work(pmgt_data, cut_data, MR_PMGT_JOBS[:1], MR_DOWNSTREAM_JOBS)
+    ref_s = time.perf_counter() - t0
+    refs = {"replicated": ref["replicated"], "sharded": nccl["sharded"]}
+
+    def row(r: dict, name: str) -> dict:
+        j = r[name]
+        return {"backend": r["backend"], "rank": r["rank"], "ranks": r["ranks"],
+                "card": r["card"], "job_s": j["job_s"], "draw_ms": j["draw_ms"],
+                "eval_ms": j.get("eval_export_ms", j.get("eval_serve_ms")),
+                "steps": j["steps"], "step_ms": j["step_ms"],
+                "all_reduce_ms_per_step": j["all_reduce_ms_per_step"],
+                "row_gather_ms_per_step": j["row_gather_ms_per_step"],
+                "k1_k2_train": j["train_launches"],
+                "k1_k2_eval": j.get("eval_export_launches", j.get("eval_serve_launches"))}
+
+    lines = []
+    ok = True
+    for name, _ in MR_PMGT_JOBS:
+        checks = [_mr_close(refs[name], g[name]) for g in gloo]
+        equal = all(torch_equal(gloo[0][name]["params"], g[name]["params"]) for g in gloo[1:])
+        launched = all(g[name]["train_launches"]["k1"] > 0 and g[name]["train_launches"]["k2"] > 0
+                       for g in gloo)
+        good = all(c["ok"] for c in checks) and equal and launched
+        ok &= good
+        lines.append({"phase": "multi_rank", "job": f"pmgt_{name}", "fusion": refs[name]["fusion"],
+                      "ranks": [row(g, name) for g in gloo],
+                      "reference": row(nccl if name == "sharded" else ref, name),
+                      "checks": checks, "params_bit_equal_across_ranks": equal,
+                      "val_auc": [g[name]["metrics"]["val/auc"] for g in gloo],
+                      "ok": good})
+    for name, *_ in MR_DOWNSTREAM_JOBS:
+        r0 = ref[name]
+        checks = []
+        for g in gloo:
+            j = g[name]
+            rel = float(np.max(np.abs(j["losses"] - r0["losses"]) / np.abs(r0["losses"])))
+            same = {k: j["metrics"][k] == r0["metrics"][k] for k in r0["metrics"]
+                    if not k.endswith("loss")}
+            served = _mr_served_close(r0["top"], j["top"])
+            checks.append({"loss_max_rel_diff": rel, "metrics_equal": same, "served": served,
+                           "ok": rel <= 2e-4 and all(same.values())
+                           and served["differing_not_near_tie"] == 0
+                           and served["same_minus_inf"]})
+        good = all(c["ok"] for c in checks)
+        if name == "pmgt_ncf":
+            good &= all(g[name]["train_launches"]["k1"] > 0 and g[name]["train_launches"]["k2"] > 0
+                        for g in gloo)
+        ok &= good
+        lines.append({"phase": "multi_rank", "job": name, "ranks": [row(g, name) for g in gloo],
+                      "reference": row(ref, name), "checks": checks,
+                      "metrics": [g[name]["metrics"] for g in gloo],
+                      "reference_metrics": r0["metrics"], "ok": good})
+    eng = nccl["engine"]
+    (eng_run,) = RunRegistry(args.log_dir).list_runs()
+    eng["run_status"] = eng_run.status
+    eng_ok = (np.isfinite(list(eng["test"].values())).all() and eng_run.status == "FINISHED"
+              and eng["launches"]["k1"] > 0 and eng["launches"]["k2"] > 0)
+    ok &= bool(eng_ok)
+    lines.append({"phase": "multi_rank", "job": "nccl_one_rank", "backend": nccl["backend"],
+                  "ranks": nccl["ranks"], "card": nccl["card"],
+                  "sharded": row(nccl, "sharded"), "engine": eng, "ok": bool(eng_ok)})
+    for line in lines:
+        emit(line)
+    summary = {"phase": "multi_rank", "nccl_one_rank_s": nccl_s, "gloo_launch_s": gloo_s,
+               "reference_s": ref_s, "ok": bool(ok)}
+    emit(summary)
+    if not ok:
+        raise RuntimeError("the multi-rank runs disagree with the 1-rank runs or launched no kernel")
+    launches = {k: sum(g[j]["train_launches"][k] + g[j].get(
+                    "eval_export_launches", g[j].get("eval_serve_launches"))[k]
+                    for g in gloo for j in ("replicated", "sharded", "pmgt_ncf"))
+                + nccl["sharded"]["train_launches"][k] + nccl["sharded"]["eval_export_launches"][k]
+                + eng["launches"][k] for k in ("k1", "k2")}
+    return {"lines": lines, "summary": summary, "launches": launches}
+
+
+def torch_equal(a: dict, b: dict) -> bool:
+    import torch
+
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def run_multi_card(root: str) -> dict:
+    """``--multi-card`` (on a host with more than one card): the PMGT jobs
+    of phase 16b (full-width train-pmgt, replicated and with both shard
+    flags) at 2 and 4 NCCL ranks, one card each, against one rank in this
+    process, with phase 16b's bounds."""
+    import shutil
+
+    import torch
+
+    from pmgt_tpu_torch.core import mesh
+    from pmgt_tpu_torch.data.artifacts import save_native
+    from pmgt_tpu_torch.data.synthetic import make_published_shape_dataset
+
+    shutil.rmtree(root, ignore_errors=True)
+    save_native(os.path.join(root, "TG"), make_published_shape_dataset("TG", seed=0))
+    t = time.perf_counter()
+    ref = multi_rank_work(root, root, MR_PMGT_JOBS, ())
+    out = {"reference_s": time.perf_counter() - t, "ok": True}
+    keys = ("job_s", "draw_ms", "epoch_ms", "step_ms", "all_reduce_ms_per_step",
+            "row_gather_ms_per_step", "eval_export_ms", "train_launches", "eval_export_launches")
+    for n in (2, 4):
+        if n > torch.cuda.device_count():
+            continue
+        t = time.perf_counter()
+        got = mesh.launch(multi_rank_work, n, (root, root, MR_PMGT_JOBS, ()), device="cuda",
+                          backend="nccl", timeout_s=400, run_timeout_s=400)
+        out[f"nccl{n}_launch_s"] = time.perf_counter() - t
+        for name, _ in MR_PMGT_JOBS:
+            checks = [_mr_close(ref[name], g[name]) for g in got]
+            line = {"phase": "multi_card", "job": f"pmgt_{name}", "backend": "nccl", "ranks": n,
+                    "checks": checks,
+                    "params_bit_equal_across_ranks": all(
+                        torch_equal(got[0][name]["params"], g[name]["params"]) for g in got[1:]),
+                    "per_rank": [{"card": g["card"], **{k: g[name][k] for k in keys}} for g in got],
+                    "reference": {k: ref[name][k] for k in keys}}
+            line["ok"] = all(c["ok"] for c in checks) and line["params_bit_equal_across_ranks"]
+            out["ok"] &= line["ok"]
+            emit(line)
+            out[f"nccl{n}_{name}"] = line
+    return out
+
+
+def multi_card_main() -> int:
+    """``python3 chip_smoke.py --multi-card``: only ``run_multi_card``."""
+    sys.path.insert(0, HERE)
+    import torch
+
+    if torch.cuda.device_count() < 2:
+        print("--multi-card needs more than one card", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    print(smi, flush=True)
+    from pmgt_tpu_torch.ops import build
+
+    build.build_all()
+    out = run_multi_card(os.path.join(HERE, "outputs", "chip_smoke_multi_card"))
+    emit({"phase": "multi_card", "cards": smi, **{k: v for k, v in out.items()
+                                                  if k.endswith("_s") or k == "ok"}})
+    return 0 if out["ok"] else 1
+
+
 def run_options(data_dir: str, root: str) -> dict:
     """Short ``train-pmgt`` runs at the default width (hidden 128, 5
     layers, batch 256), one epoch of 4 steps (``--valid-size 0.9``: 1,083
@@ -2388,7 +2754,7 @@ def trial_runs(log_dir: str) -> dict:
 def run_hpo_pmgt(data_dir: str, root: str, art) -> dict:
     """``hp-tuning --train-name pmgt`` with config/hpo/hpo_pmgt_params.yaml
     and a copy of config/hpo/train_pmgt_params.json that changes only
-    ``data_dir``, ``dataset_name``, ``log_dir`` and ``num_epochs`` (1): 2
+    ``data_dir``, ``dataset_name``, ``log_dir`` and ``num_epochs`` (1): 1
     trials, then the same study resumed to 3 (exactly one more trial). Per
     trial: FINISHED, its objective equal to its logged ``val/auc`` within
     1e-6 (1 epoch: the best), K2 = L a step and K1 = L a step + L an
@@ -2802,6 +3168,11 @@ def main() -> int:
     # last profiler session, so it comes after the profiled passes)
     options = run_options(cli_data, os.path.join(HERE, "outputs", "chip_smoke_options"))
 
+    # ---- 16b. data parallelism: one NCCL rank; two gloo ranks sharing the
+    # card (train-pmgt replicated and sharded, NCF, DCN, PMGT_NCF)
+    multi = run_multi_rank(cli_data, os.path.join(down_root, "data"),
+                           os.path.join(HERE, "outputs", "chip_smoke_multi_rank"))
+
     # ---- 17-19. the data and tuning commands: preprocess a review dump,
     # then hp-tuning on it (PMGT trials on K1/K2; the NeuMF-PMGT search)
     pre = run_preprocess(os.path.join(HERE, "outputs", "chip_smoke_preprocess"), DUMP)
@@ -2847,7 +3218,8 @@ def main() -> int:
           "published_pmgt_ncf_bf16": pub_ncf_launches["k1"],
           "options": opt_launches["k1"],
           "hpo_pmgt_trials": hpo_launches["k1"],
-          "hpo_ncf_exports": export_launches["k1"]}),
+          "hpo_ncf_exports": export_launches["k1"],
+          "multi_rank": multi["launches"]["k1"]}),
         ("dual_attention_bwd_sm", K2_SOURCE, K2_REPLACES, pick(k2_checks, 3072), k2_checks,
          {"serving": kern["row"]["k2_launches"], "training": train["k2_launches"],
           "train_pmgt_cli": cli_launches["k2"],
@@ -2860,7 +3232,8 @@ def main() -> int:
           "published_pmgt_ncf_bf16": pub_ncf_launches["k2"],
           "options": opt_launches["k2"],
           "hpo_pmgt_trials": hpo_launches["k2"],
-          "hpo_ncf_exports": export_launches["k2"]}),
+          "hpo_ncf_exports": export_launches["k2"],
+          "multi_rank": multi["launches"]["k2"]}),
         ("dual_attention_fwd_bm", K1_SOURCE, K3_REPLACES, pick(k3_checks, 3072),
          [r for r in k3_checks if r["dtype"] == "float32"],
          {"public_op": public["launches"]["k3"]}),
@@ -2905,6 +3278,7 @@ def main() -> int:
                    pmgt_ncf=pncf["row"], dcn=dcn, downstream_cli=down_cli,
                    published_pmgt=published["row"], published_pmgt_ncf=pub_ncf["row"],
                    options=options, downstream_profile=down_busy,
+                   multi_rank=multi["lines"], multi_rank_summary=multi["summary"],
                    preprocess=pre["row"], hpo_pmgt=hpo_pmgt, hpo_ncf=hpo_ncf,
                    command_s=time.perf_counter() - T_START)
     emit({"phase": "command_time", "seconds": results["command_s"]})
@@ -2921,4 +3295,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(multi_card_main() if sys.argv[1:] == ["--multi-card"] else main())

@@ -40,6 +40,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 from pmgt_tpu_torch.cli.main import (
+    MULTI_HOST,
     _existing_path,
     log_elapsed_time,
     train_args,
@@ -315,6 +316,12 @@ def _objective(
 ) -> float:
     params = copy.deepcopy(train_params)
     params.update(get_hp_params(trial, hp_params))
+    several = {k: params[k] for k in ("num_devices", *MULTI_HOST)
+               if params.get(k) is not None and not (k == "num_devices" and params[k] == 1)}
+    if several:
+        raise NotImplementedError(
+            f"hp-tuning runs every trial on one device; {sorted(several)} (multi-host or "
+            "multi-GPU trials) wait for ROADMAP.md §1, hp-tuning over several devices")
     tags = [tuple(t) for t in params.get("tags", [])]
     tags.append(("trial", str(trial.number)))
     params["tags"] = tags

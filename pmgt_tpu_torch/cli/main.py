@@ -7,10 +7,14 @@ built on ``argparse``:
 
 (or the ``pmgt-tpu-torch`` console script). The four training commands
 take every option of the JAX package's commands, with the same names and
-defaults, and ``--save-args`` writes the same JSON. Only the multi-GPU
-options are not ported yet: they are accepted and raise
-``NotImplementedError`` when a run starts (``tasks/pmgt_task.
-UNPORTED_OPTIONS``, and here the multi-host trio). ``--profile-dir`` writes
+defaults, and ``--save-args`` writes the same JSON. ``--num-devices N``
+runs the command data-parallel in N processes, one card each (``core/
+mesh.launch``; unset: every visible card, one on the CPU); the multi-host
+trio ``--coordinator-address`` / ``--num-processes`` / ``--process-id``
+(or the JAX environment trio) joins this host's ranks to a group across
+hosts: NCCL joins ranks on cards, gloo ranks on the CPU.
+``--shard-feat-tables`` / ``--shard-graph-tables`` row-shard the tables
+over the ranks. ``--profile-dir`` writes
 a ``torch.profiler`` trace of the training (``--mode train`` only, as the
 JAX command traces only the training); ``--scan-epoch`` has no counterpart (the engine runs one epoch at a
 time) and is only recorded. ``--device`` belongs to the command group and
@@ -18,8 +22,8 @@ stays out of the saved arguments. ``train_model`` is the workload
 dispatcher: it finalizes the status (FINISHED or FAILED) only of a run
 this invocation created or trained; ``--mode eval`` or ``inference``
 against an existing run leaves that run's status as it was.
-``hp-tuning`` (``cli/hpo.py``) runs each trial through ``train_model``;
-the data commands are in ``cli/data_cmds.py``.
+``hp-tuning`` (``cli/hpo.py``) runs each trial through ``train_model`` on
+one device; the data commands are in ``cli/data_cmds.py``.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import sys
 import time
 from typing import Any, Dict, Optional, Sequence
 
+from pmgt_tpu_torch.core import mesh as dist_mesh
 from pmgt_tpu_torch.core.config import TrainArgs
 from pmgt_tpu_torch.train.checkpoints import read_best_info
 from pmgt_tpu_torch.train.registry import RunRegistry
@@ -41,7 +46,7 @@ logger = logging.getLogger("pmgt_tpu_torch")
 SCHEDULER_TYPES = ("linear", "cosine", "cosine_with_restarts", "polynomial",
                    "constant", "constant_with_warmup")
 # The multi-host bring-up options: not TrainArgs fields (as in the JAX
-# package, which consumes them before the run), not ported.
+# package, which consumes them before the run).
 MULTI_HOST = ("coordinator_address", "num_processes", "process_id")
 
 _COMMON_KEYS = {
@@ -112,10 +117,15 @@ def _add_common_options(p: argparse.ArgumentParser) -> None:
     a("--data-dir", default="./data")
     a("--log-dir", default="./logs")
     a("--run-script", type=_existing_path, default=None)
-    a("--num-devices", type=int, default=None, help="devices (more than 1: not ported)")
-    a("--coordinator-address", default=None, help="multi-host (not ported)")
-    a("--num-processes", type=int, default=None, help="multi-host (not ported)")
-    a("--process-id", type=int, default=None, help="multi-host (not ported)")
+    a("--num-devices", type=int, default=None,
+      help="data-parallel ranks, one process and one card each (default: every "
+      "visible card; one on the CPU)")
+    a("--coordinator-address", default=None,
+      help="multi-host: host:port of process 0 (or JAX_COORDINATOR_ADDRESS)")
+    a("--num-processes", type=int, default=None,
+      help="multi-host: number of hosts (or JAX_NUM_PROCESSES)")
+    a("--process-id", type=int, default=None,
+      help="multi-host: this host's index (or JAX_PROCESS_ID)")
     a("--profile-dir", default=None,
       help="write a torch.profiler trace of the training to this directory")
     a("--swa-start", type=int, default=None,
@@ -160,8 +170,10 @@ def _add_train_pmgt(sub) -> None:
     a("--scan-epoch", action=argparse.BooleanOptionalAction, default=True,
       help="no counterpart: the engine runs one epoch at a time and "
       "fetches its losses once (recorded for config compatibility)")
-    a("--shard-feat-tables", action="store_true", help="(not ported)")
-    a("--shard-graph-tables", action="store_true", help="(not ported)")
+    a("--shard-feat-tables", action="store_true",
+      help="row-shard the frozen feature tables over the ranks")
+    a("--shard-graph-tables", action="store_true",
+      help="row-shard the per-node graph tables over the ranks")
     a("--fusion-strategy", choices=("auto", "project_tables", "gather_rows"),
       default="auto")
     a("--feat-tables-dtype", choices=("float32", "bfloat16", "int8"),
@@ -255,8 +267,10 @@ def _add_train_pmgt_ncf(sub) -> None:
     a("--feat-tables-dtype", choices=("float32", "bfloat16", "int8"),
       default=None,
       help="feature table storage (default: bfloat16 with --mp-enabled, else float32)")
-    a("--shard-feat-tables", action="store_true", help="(not ported)")
-    a("--shard-graph-tables", action="store_true", help="(not ported)")
+    a("--shard-feat-tables", action="store_true",
+      help="row-shard the frozen feature tables over the ranks")
+    a("--shard-graph-tables", action="store_true",
+      help="row-shard the per-node graph tables over the ranks")
     a("--topk", type=int, default=100,
       help="inference mode: items per user in the serving export")
     a("--serve-user-batch", type=int, default=64,
@@ -317,14 +331,8 @@ def _make_args(raw: Dict[str, Any]) -> TrainArgs:
 
 def train_args(raw: Dict[str, Any]) -> TrainArgs:
     """The ``TrainArgs`` of a training command's options, or of an
-    hp-tuning trial's train config with its suggestions; raises
-    ``NotImplementedError`` for the multi-host options."""
-    multi_host = {k: raw[k] for k in MULTI_HOST if raw.get(k) is not None}
-    if multi_host:
-        raise NotImplementedError(
-            f"multi-host options {sorted(multi_host)} are not ported to "
-            "pmgt_tpu_torch yet (ROADMAP.md §1, multi-GPU)"
-        )
+    hp-tuning trial's train config with its suggestions (the multi-host
+    trio is not a field)."""
     return _make_args(dict(raw))
 
 
@@ -335,7 +343,45 @@ def _train(train_name: str, ns: argparse.Namespace):
         _make_args(raw).save(ns.save_args)
         logger.info("saved args to %s", ns.save_args)
         return None
-    return train_model(train_name, train_args(raw), device=ns.device)
+    trio = dist_mesh.distributed_trio(*(raw.get(k) for k in MULTI_HOST))
+    return run_training(train_name, train_args(raw), ns.device, trio)
+
+
+def _rank_main(train_name: str, args: TrainArgs, device: str):
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr,
+                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    return train_model(train_name, args, device=device)
+
+
+def run_training(train_name: str, args: TrainArgs, device: str = "cuda", trio=None):
+    """``train_model`` on one device, or data-parallel: ``args.num_devices``
+    ranks (unset: every visible card, one on the CPU), each a process of
+    its own, or with ``trio`` = (coordinator, processes, process id) this
+    host's share of a group across hosts. Returns rank 0's result (this
+    host's first rank's, across hosts)."""
+    import torch
+
+    n = args.num_devices
+    # every visible card (at least one: without a card the run raises)
+    visible = max(torch.cuda.device_count(), 1) if torch.device(device).type == "cuda" else 1
+    if trio is None:
+        ranks = n if n is not None else visible
+        if ranks == 1:
+            return train_model(train_name, args, device=device)
+        return dist_mesh.launch(_rank_main, ranks, (train_name, args, device), device=device)[0]
+    coordinator, processes, process_id = trio
+    if n is not None and n % processes:
+        raise ValueError(f"--num-devices {n} is not a multiple of --num-processes {processes}")
+    local = n // processes if n is not None else visible
+    if local == 1:  # this process is the host's one rank
+        dist_mesh.initialize_distributed(coordinator, processes, process_id, device=device)
+        try:
+            return train_model(train_name, args, device=device)
+        finally:
+            dist_mesh.stop()
+    return dist_mesh.launch(_rank_main, local, (train_name, args, device), device=device,
+                            coordinator_address=coordinator, num_processes=processes,
+                            process_id=process_id)[0]
 
 
 @log_elapsed_time

@@ -181,7 +181,7 @@ class TrainArgs:
     run_script: Optional[str] = None
 
     # --- device options ------------------------------------------------
-    num_devices: Optional[int] = None  # None = one device (more: not ported)
+    num_devices: Optional[int] = None  # data-parallel ranks; None = every visible card
     mesh_shape: Optional[Tuple[int, ...]] = None
     profile_dir: Optional[str] = None
     # Evaluate/checkpoint/early-stop every k epochs.

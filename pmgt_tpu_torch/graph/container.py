@@ -20,17 +20,22 @@ bit for bit. :meth:`PaddedGraph.to` gives the device view the samplers read.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Any, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+from pmgt_tpu_torch.core.mesh import gather_rows
 
 NEG_INF = float("-inf")
 NUM_SPECIAL_NODES = 2  # 0 = <pad>, 1 = <mask>
 
 
 class DeviceGraph(NamedTuple):
-    """Torch tensors the samplers read, on one device."""
+    """Torch tensors the samplers read, on one device. With ``mesh`` (a
+    rank of a data-parallel group, ``core/mesh.place_graph``) the per-node
+    tables hold the rank's row block and ``degrees`` stays whole; the
+    samplers read every per-node row through ``rows``."""
 
     nbr_ids: torch.Tensor  # [N+2, max_deg] int64
     degrees: torch.Tensor  # [N+2] int64
@@ -38,10 +43,15 @@ class DeviceGraph(NamedTuple):
     alias_alias: torch.Tensor  # [(N+2)*max_deg] int64
     alias_prob: torch.Tensor  # [(N+2)*max_deg] float32
     nbr_sorted: torch.Tensor  # [N+2, max_deg] int64
+    mesh: Optional[Any] = None  # the group the tables are row-sharded over
+    rows_total: int = 0  # N+2 when sharded (the blocks are padded)
+
+    tensor_fields = ("nbr_ids", "degrees", "alias_primary", "alias_alias", "alias_prob",
+                     "nbr_sorted")
 
     @property
     def num_total(self) -> int:
-        return int(self.nbr_ids.shape[0])
+        return self.rows_total if self.mesh is not None else int(self.nbr_ids.shape[0])
 
     @property
     def max_degree(self) -> int:
@@ -50,6 +60,11 @@ class DeviceGraph(NamedTuple):
     @property
     def device(self) -> torch.device:
         return self.nbr_ids.device
+
+    def rows(self, tables, ids: torch.Tensor):
+        """``t[ids]`` for a per-node table ``t`` of this graph (or a tuple
+        of tables indexed alike, gathered with one exchange of ids)."""
+        return gather_rows(self.mesh, tables, ids)
 
 
 class PaddedGraph(NamedTuple):

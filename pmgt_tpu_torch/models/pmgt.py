@@ -40,6 +40,20 @@ layer the attention keep masks m1 and m2 (``draw_keep_masks``, one pair
 for both attention routes), the ``attention_output`` dropout mask and the
 ``output`` dropout mask. Dropout is flax's: ``where(u < keep, x / keep,
 0)``.
+
+Data parallelism (``forward(..., mesh=)``, a rank of ``core/mesh``): the
+rank's batch is its contiguous share of the global micro-batch, so its
+lanes are three index ranges of the global lane layout ``[targets | pairs
+| masked]``. Every draw is made in the global micro-batch's shape from the
+step's generator and the rank keeps its lanes (``core/mesh.lane_draws``:
+the corruption on the target rows, the hidden dropout on the lane axis,
+the keep masks on axis 1), so N ranks draw what one process draws. The
+GSR and NFR denominators (valid samples, masked slots) are summed over the
+ranks before dividing: each rank's loss is its numerator over the global
+denominator, and the ranks' losses and gradients add up to the global
+ones. With row-sharded feature tables every row read goes through
+``core/quant.tables_rows``; under ``project_tables`` each rank projects its
+own rows and gathers the projected rows, with their gradient.
 """
 from __future__ import annotations
 
@@ -51,7 +65,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from pmgt_tpu_torch.core.config import PMGTConfig
-from pmgt_tpu_torch.core.quant import dense_table, table_rows
+from pmgt_tpu_torch.core.mesh import Mesh, ShardedDraws, all_reduce, lane_draws, rand, randint
+from pmgt_tpu_torch.core.quant import ShardedTable, dense_table, tables_rows
 from pmgt_tpu_torch.graph.container import NUM_SPECIAL_NODES
 from pmgt_tpu_torch.ops.dual_attention import draw_keep_masks, dual_attention_sm
 from pmgt_tpu_torch.sampling.pairs import PretrainBatch
@@ -122,15 +137,18 @@ def dropout(
     x: torch.Tensor,
     rate: float,
     deterministic: bool,
-    generator: Optional[torch.Generator],
+    generator,
+    lane_axis: int = 0,
 ) -> torch.Tensor:
     """flax ``nn.Dropout``: ``where(uniform < 1 - rate, x / (1 - rate),
-    0)``, one uniform per element from ``generator``; the identity when
-    ``deterministic`` or ``rate == 0`` (nothing is drawn then)."""
+    0)``, one uniform per element from ``generator`` (a ``torch.Generator``
+    or a rank's ``core.mesh.ShardedDraws``, whose lanes lie on
+    ``lane_axis``); the identity when ``deterministic`` or ``rate == 0``
+    (nothing is drawn then)."""
     if deterministic or rate == 0.0:
         return x
     keep = 1.0 - rate
-    m = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    m = rand(x.shape, generator, x.device, axis=lane_axis) < keep
     return torch.where(m, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -162,12 +180,16 @@ class PMGTEmbeddings(nn.Module):
 
     def project(self, feat_tables) -> List[torch.Tensor]:
         """[N+2, F_m] tables (plain or int8) → [N+2, H] projected tables in
-        the compute dtype."""
+        the compute dtype; a row-sharded table's block → the projected
+        block, sharded alike."""
         dt = self.dtype
-        return [
-            linear(lin, dense_table(t, dt), dt)
-            for lin, t in zip(self.feat_linear, feat_tables)
-        ]
+        out = []
+        for lin, t in zip(self.feat_linear, feat_tables):
+            if isinstance(t, ShardedTable):
+                out.append(t._replace(local=linear(lin, dense_table(t.local, dt), dt)))
+            else:
+                out.append(linear(lin, dense_table(t, dt), dt))
+        return out
 
     def forward(
         self,
@@ -318,7 +340,7 @@ class PMGTSelfAttention(nn.Module):
         # the same dropout pattern.
         m1 = m2 = None
         if use_dropout:
-            m1, m2 = draw_keep_masks(s, b * h, keep, generator)
+            m1, m2 = draw_keep_masks(s, b * h, keep, generator, group=h)
         bias = None
         if cfg.position_embedding_type in RELATIVE_POSITIONS:
             bias = self._relative_bias(query, key, s, b)
@@ -377,12 +399,14 @@ class PMGTLayer(nn.Module):
         )
         s, b, _ = attn.shape
         attn = linear(self.attention_output, attn.reshape(s * b, attn.shape[-1]), dt)
-        attn = dropout(attn, rate, deterministic, generator)
+        # seq-major rows: the lanes are axis 1 of [S, B, H]
+        attn = dropout(attn.reshape(s, b, -1), rate, deterministic, generator, 1)
         hidden = layer_norm(
-            self.attention_norm, attn + hidden.reshape(s * b, hidden.shape[-1]), dt
+            self.attention_norm, attn.reshape(s * b, -1) + hidden.reshape(s * b, -1), dt
         )
         inter = gelu(linear(self.intermediate, hidden, dt))
-        out = dropout(linear(self.output, inter, dt), rate, deterministic, generator)
+        out = dropout(linear(self.output, inter, dt).reshape(s, b, -1), rate, deterministic,
+                      generator, 1).reshape(s * b, -1)
         out = layer_norm(self.output_norm, out + hidden, dt)
         return out.reshape(s, b, -1), probs
 
@@ -398,8 +422,11 @@ def _checkpointed(layer: PMGTLayer, hidden, additive_bs, deterministic, generato
     def run(h):
         gen = generator
         if not first[0] and generator is not None:
-            gen = torch.Generator(device=generator.device)
-            gen.set_state(entry)
+            if isinstance(generator, ShardedDraws):
+                gen = generator.restored(entry)
+            else:
+                gen = torch.Generator(device=generator.device)
+                gen.set_state(entry)
         first[0] = False
         return layer(h, additive_bs, deterministic, gen, *rest)
 
@@ -497,10 +524,13 @@ def gsr_loss_fn(
     pair_cls: torch.Tensor,  # [B, P, H]
     labels: torch.Tensor,  # [B, P]
     pair_valid: torch.Tensor,  # [B, P]
+    valid_samples: Optional[torch.Tensor] = None,
 ):
     """Graph Structure Reconstruction loss: L2-normalised CLS dot-product
     logits, BCE-with-logits, mean over each sample's valid pairs, then
-    mean over samples. Returns (loss, logits [B, P])."""
+    mean over samples. ``valid_samples`` replaces the count of samples
+    with a valid pair (a data-parallel rank passes the global count).
+    Returns (loss, logits [B, P])."""
     t = target_cls / torch.clamp(
         torch.linalg.norm(target_cls, dim=-1, keepdim=True), min=1e-12
     )
@@ -512,9 +542,9 @@ def gsr_loss_fn(
     counts = torch.sum(pair_valid, dim=1)
     per_sample = torch.sum(per_pair, dim=1) / torch.clamp(counts, min=1.0)
     sample_valid = (counts > 0).to(per_sample.dtype)
-    loss = torch.sum(per_sample * sample_valid) / torch.clamp(
-        torch.sum(sample_valid), min=1.0
-    )
+    if valid_samples is None:
+        valid_samples = torch.sum(sample_valid)
+    loss = torch.sum(per_sample * sample_valid) / torch.clamp(valid_samples, min=1.0)
     return loss, logits
 
 
@@ -591,14 +621,12 @@ class PMGTForPreTraining(nn.Module):
     ) -> torch.Tensor:
         """Encoder pass over [B, S] node-id sequences → [B, S, H]."""
         if self.config.fusion_strategy == "gather_rows":
-            feat_embeds = [
-                table_rows(t, node_ids, self.bert.dtype) for t in feat_tables
-            ]
+            feat_embeds = tables_rows(feat_tables, node_ids, self.bert.dtype)
             projected = False
         else:
             if proj_tables is None:
                 proj_tables = self.project_tables(feat_tables)
-            feat_embeds = [t[node_ids] for t in proj_tables]
+            feat_embeds = tables_rows(proj_tables, node_ids)
             projected = True
         return self.bert(
             feat_embeds, attention_mask, deterministic, projected,
@@ -614,33 +642,45 @@ class PMGTForPreTraining(nn.Module):
         proj_tables: Optional[Sequence[torch.Tensor]] = None,
         generator: Optional[torch.Generator] = None,
         corruption: Optional[Tuple[torch.Tensor, ...]] = None,
+        mesh: Optional[Mesh] = None,
     ) -> PretrainOutput:
         """One encoder pass over the lanes ``[targets | pairs | masked]``
         (the masked lane only with ``compute_nfr``) → GSR loss, NFR loss,
         ``loss = gsr + nfr`` and the pair logits. ``generator`` feeds the
         corruption draws (or pass them as ``corruption``, see ``_corrupt``)
-        and then the dropout masks."""
+        and then the dropout masks. With ``mesh`` the batch is this rank's
+        share of the global micro-batch (see the module docstring): the
+        losses are its parts of the global losses."""
         b, p, s = batch.pair_ids.shape
+        w = mesh.size if mesh is not None else 1
         lanes = [batch.target_ids, batch.pair_ids.reshape(b * p, s)]
         mask_lanes = [batch.target_mask, batch.pair_mask.reshape(b * p, s)]
+        segments = [(w * b, b), (w * b * p, b * p)]
         if compute_nfr:
             masked_ids, nfr_pos_mask, nfr_target_ids = self._corrupt(
-                batch.target_ids, generator, corruption
+                batch.target_ids, lane_draws(mesh, generator, segments[:1]), corruption
             )
             lanes.append(masked_ids)
             mask_lanes.append(batch.target_mask)
+            segments.append((w * b, b))
+        valid_samples = count = None
+        if mesh is not None and mesh.distributed:
+            valid_samples, count = all_reduce(mesh, torch.stack([
+                torch.sum((torch.sum(batch.pair_valid, dim=1) > 0).to(torch.float32)),
+                torch.sum(nfr_pos_mask) if compute_nfr else batch.pair_valid.new_zeros(()),
+            ]))
         hidden = self.encode(
             feat_tables, torch.cat(lanes), torch.cat(mask_lanes),
-            deterministic, proj_tables, generator,
+            deterministic, proj_tables, lane_draws(mesh, generator, segments),
         )
         target_cls = hidden[:b, 0]
         pair_cls = hidden[b : b + b * p, 0].reshape(b, p, -1)
         gsr, logits = gsr_loss_fn(
-            target_cls, pair_cls, batch.labels, batch.pair_valid
+            target_cls, pair_cls, batch.labels, batch.pair_valid, valid_samples
         )
         if compute_nfr:
             nfr = self._nfr_loss(
-                feat_tables, hidden[b + b * p :], nfr_pos_mask, nfr_target_ids
+                feat_tables, hidden[b + b * p :], nfr_pos_mask, nfr_target_ids, count
             )
         else:
             nfr = torch.zeros((), dtype=gsr.dtype, device=gsr.device)
@@ -673,12 +713,11 @@ class PMGTForPreTraining(nn.Module):
         if draws is None:
             if generator is None:
                 raise ValueError("NFR corruption needs a torch.Generator or draws")
-            rand1 = torch.rand(ctx.shape, generator=generator, device=dev)
-            random_ids = torch.randint(
-                NUM_SPECIAL_NODES, self.node_size + NUM_SPECIAL_NODES,
-                ctx.shape, generator=generator, device=dev,
+            rand1 = rand(ctx.shape, generator, dev)
+            random_ids = randint(
+                NUM_SPECIAL_NODES, self.node_size + NUM_SPECIAL_NODES, ctx.shape, generator, dev
             )
-            rand2 = torch.rand(ctx.shape, generator=generator, device=dev)
+            rand2 = rand(ctx.shape, generator, dev)
         else:
             rand1, random_ids, rand2 = (torch.as_tensor(x, device=dev) for x in draws)
         replace = (rand1 < self.random_node_ratio) & (ctx != 0)
@@ -694,17 +733,22 @@ class PMGTForPreTraining(nn.Module):
         masked_hidden: torch.Tensor,  # [B, S, H]
         pos_mask: torch.Tensor,  # [B, S-1], 1 where a context slot was masked
         target_ids: torch.Tensor,  # [B, S-1] post-replacement ids
+        count: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Node Feature Reconstruction: per modality, project the masked
         positions' hidden states, squared error against the original
         feature rows summed over F in f32, masked mean with denominator
-        ``max(count * F, 1)``; then the mean over modalities."""
+        ``max(count * F, 1)`` (``count``: the masked slots, or the global
+        count a data-parallel rank passes); then the mean over
+        modalities."""
         ctx_hidden = masked_hidden[:, 1:]
-        count = torch.sum(pos_mask)
+        if count is None:
+            count = torch.sum(pos_mask)
+        dt = self.bert.dtype
+        targets = tables_rows(feat_tables, target_ids, dt)
         losses = []
-        for proj, table in zip(self.nfr_projections, feat_tables):
-            pred = linear(proj, ctx_hidden, self.bert.dtype)  # [B, S-1, F]
-            target = table_rows(table, target_ids, pred.dtype)
+        for proj, target in zip(self.nfr_projections, targets):
+            pred = linear(proj, ctx_hidden, dt)  # [B, S-1, F]
             sq = torch.sum((pred - target) ** 2, dim=-1, dtype=torch.float32)
             denom = torch.clamp(count * pred.shape[-1], min=1.0)
             losses.append(torch.sum(sq * pos_mask) / denom)

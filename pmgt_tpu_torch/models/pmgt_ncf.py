@@ -28,7 +28,7 @@ import torch
 from torch import nn
 
 from pmgt_tpu_torch.core.config import PMGTConfig
-from pmgt_tpu_torch.core.quant import table_rows
+from pmgt_tpu_torch.core.quant import tables_rows
 from pmgt_tpu_torch.models.initializers import lecun_normal_, normal_, xavier_uniform_
 from pmgt_tpu_torch.models.pmgt import PMGTModel, dropout
 
@@ -106,12 +106,12 @@ class PMGT_NCF(nn.Module):
     ) -> torch.Tensor:
         """Logits [B]."""
         if self.config.fusion_strategy == "gather_rows":
-            feats = [table_rows(t, item_node_ids, self.bert.dtype) for t in feat_tables]
+            feats = tables_rows(feat_tables, item_node_ids, self.bert.dtype)
             projected = False
         else:
             if proj_tables is None:
                 proj_tables = self.project_tables(feat_tables)
-            feats = [t[item_node_ids] for t in proj_tables]
+            feats = tables_rows(proj_tables, item_node_ids)
             projected = True
         hidden = self.bert(feats, item_attention_mask, deterministic, projected,
                            generator=generator)

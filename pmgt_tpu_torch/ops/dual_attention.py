@@ -50,6 +50,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from pmgt_tpu_torch.core.mesh import rand
 from pmgt_tpu_torch.ops import build
 
 MAX_SEQ = 32
@@ -210,14 +211,15 @@ def dual_attention_sm_backward_reference(
 
 
 def draw_keep_masks(
-    s: int, n: int, keep: float, generator: torch.Generator
+    s: int, n: int, keep: float, generator, group: int = 1
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The attention keep masks m1, m2: [S, N, S] bool, True with
     probability ``keep`` (``uniform < keep``, as ``jax.random.bernoulli``),
-    drawn m1 first on the generator's device."""
-    dev = generator.device
-    m1 = torch.rand((s, n, s), generator=generator, device=dev) < keep
-    m2 = torch.rand((s, n, s), generator=generator, device=dev) < keep
+    drawn m1 first on the generator's device. From a data-parallel rank's
+    ``core.mesh.ShardedDraws`` the rank's lanes of the global masks, each
+    lane ``group`` (the heads) consecutive columns of axis 1."""
+    m1 = rand((s, n, s), generator, axis=1, group=group) < keep
+    m2 = rand((s, n, s), generator, axis=1, group=group) < keep
     return m1, m2
 
 

@@ -24,6 +24,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from pmgt_tpu_torch.core.config import SamplingConfig
+from pmgt_tpu_torch.core.mesh import rand
 from pmgt_tpu_torch.graph.container import (
     NUM_SPECIAL_NODES,
     DeviceGraph,
@@ -61,9 +62,8 @@ def alias_draw(
     slot = torch.minimum(scaled.to(torch.int64), deg - 1)
     frac = scaled - slot.to(scaled.dtype)
     flat = frontier[..., None] * graph.max_degree + slot  # [B, F, num]
-    primary = graph.alias_primary[flat]
-    alias = graph.alias_alias[flat]
-    prob = graph.alias_prob[flat]
+    primary, alias, prob = graph.rows(
+        (graph.alias_primary, graph.alias_alias, graph.alias_prob), flat)
     sampled = torch.where(frac < prob, primary, alias)
     return sampled.reshape(b, -1)
 
@@ -82,7 +82,7 @@ def _hop_uniforms(
                 f"draws[{k}] has shape {tuple(u.shape)}, expected {shape}"
             )
         return u
-    return torch.rand(shape, generator=generator, device=device)
+    return rand(shape, generator, device)
 
 
 def sample_context(

@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from pmgt_tpu_torch.core.config import SamplingConfig
+from pmgt_tpu_torch.core.mesh import rand
 from pmgt_tpu_torch.graph.container import NUM_SPECIAL_NODES, DeviceGraph
 from pmgt_tpu_torch.sampling.mcn import (
     complement_rank_select,
@@ -72,11 +73,12 @@ def sample_pairs(
     total = cfg.max_total_samples if is_training else 2
 
     # --- positives: uniform without replacement over direct neighbors ---
-    t_nbrs = graph.nbr_ids[targets]  # [B, D]
+    # [B, D] each: the neighbor rows and the ascending padded rows
+    t_nbrs, t_sorted = graph.rows((graph.nbr_ids, graph.nbr_sorted), targets)
     t_deg = graph.degrees[targets]  # [B]
     d = t_nbrs.shape[1]
     if u_pos is None:
-        u_pos = torch.rand((batch, d), generator=generator, device=device)
+        u_pos = rand((batch, d), generator, device)
     else:
         u_pos = torch.as_tensor(u_pos, dtype=torch.float32, device=device)
     slots = torch.arange(d, device=device)
@@ -92,14 +94,10 @@ def sample_pairs(
     pos_nodes = torch.where(pos_slot, pos_nodes, 0)
 
     # --- negatives: exact uniform over the non-neighbor set -----------
-    t_sorted = graph.nbr_sorted[targets]  # [B, D]
     comp = n_total - NUM_SPECIAL_NODES - t_deg[:, None]  # [B, 1]
     if rank is None:
         hi = torch.clamp(comp, min=1).to(torch.float64)
-        rank = torch.rand(
-            (batch, total), generator=generator, device=device,
-            dtype=torch.float64,
-        )
+        rank = rand((batch, total), generator, device, dtype=torch.float64)
         rank = torch.minimum((rank * hi).to(torch.int64), hi.to(torch.int64) - 1)
     else:
         rank = torch.as_tensor(rank, device=device).to(torch.int64)

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from pmgt_tpu_torch.core.config import TrainArgs
+from pmgt_tpu_torch.core.mesh import all_reduce, gather_chunks, rank_chunks
 from pmgt_tpu_torch.data.artifacts import load_artifacts, load_node_init_emb
 from pmgt_tpu_torch.data.interactions import epoch_training_arrays
 from pmgt_tpu_torch.metrics.ranking import roc_auc, stable_sigmoid
@@ -37,7 +38,6 @@ from pmgt_tpu_torch.tasks.interaction_base import (  # noqa: F401
     test,
     train,
 )
-from pmgt_tpu_torch.tasks.pmgt_task import chunk_eval_inputs, reject_unported_options
 
 logger = logging.getLogger("pmgt_tpu_torch")
 
@@ -88,8 +88,8 @@ class DCNTask(InteractionTaskBase):
         split = "valid" if split == "valid" else "test"
         users, items, labels = self.eval_arrays[split]
         if split not in self._eval_cache:
-            arrays = chunk_eval_inputs(
-                self.args.test_batch_size,
+            arrays = rank_chunks(
+                self.mesh, self.args.test_batch_size,
                 (users.astype(np.int64), items.astype(np.int64),
                  labels.astype(np.float32), np.ones(len(users), np.float32)),
             )
@@ -105,8 +105,9 @@ class DCNTask(InteractionTaskBase):
             logits_all.append(logits)
             sums.append(s)
             cnts.append(c)
-        logits = torch.cat(logits_all)[: len(users)].cpu().numpy()
-        sums, cnts = torch.cat(sums).cpu().numpy(), torch.cat(cnts).cpu().numpy()
+        logits = torch.cat(logits_all).reshape(users_c.shape)
+        logits = gather_chunks(self.mesh, logits)[: len(users)].cpu().numpy()
+        sums, cnts = (all_reduce(self.mesh, torch.cat(x)).cpu().numpy() for x in (sums, cnts))
         losses = (sums / np.maximum(cnts, 1))[cnts > 0]
         probs = stable_sigmoid(logits)
         probs[np.isnan(probs)] = 0  # reference NaN guard (dcn/trainer.py:201)
@@ -126,7 +127,6 @@ def check_args(args: TrainArgs) -> None:
         raise ValueError(f"invalid model_name {args.model_name}")
     if args.mode in ("eval", "inference") and args.run_id is None:
         raise ValueError(f"mode {args.mode} requires --run-id")
-    reject_unported_options(args)
 
 
 def init_dataloader(args: TrainArgs, ctx: Dict[str, Any]) -> None:
@@ -152,5 +152,5 @@ def inference(args: TrainArgs, ctx: Dict[str, Any], registry, run) -> Dict[str, 
         k=int(args.extra.get("topk", TOPK)),
         exclude_train=not args.extra.get("include_seen_items", False),
     )
-    save_topk(args, out)
+    save_topk(args, out, task.mesh)
     return out

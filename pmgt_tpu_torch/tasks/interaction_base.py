@@ -25,6 +25,14 @@ PMGT_NCF (counterpart of ``pmgt_tpu/tasks/interaction_base.py``).
   per-chunk masked BCE means over chunks of ``eval_chunk_users`` users
   (the JAX chunk size, which the mean depends on).
 
+Data parallelism (``--num-devices``, ``core/mesh``): every rank draws the
+same examples; rank r takes the r-th contiguous 1/N of each micro-batch,
+draws its dropout as the rows of the global micro-batch's draw
+(``core/mesh.lane_draws``) and the gradients are summed over the ranks.
+Evaluation chunks and serving user batches are padded to a multiple of the
+world size, each rank scores its share of every chunk, and the outputs
+(top-k lists, per-chunk loss sums) are gathered or summed on every rank.
+
 Generator seeds are the JAX package's key integers reduced mod 2**32; the
 streams are torch's.
 """
@@ -38,6 +46,18 @@ import torch
 
 from pmgt_tpu_torch.core.config import TrainArgs
 from pmgt_tpu_torch.core.device import resolve_device
+from pmgt_tpu_torch.core.mesh import (
+    Mesh,
+    all_reduce,
+    all_reduce_grads,
+    barrier,
+    gather_chunks,
+    lane_draws,
+    local_slice,
+    make_mesh,
+    rank_chunks,
+    replicate,
+)
 from pmgt_tpu_torch.data.interactions import (
     InteractionData,
     build_eval_candidates,
@@ -46,7 +66,6 @@ from pmgt_tpu_torch.data.interactions import (
 from pmgt_tpu_torch.metrics.ranking import get_ndcg, get_recall
 from pmgt_tpu_torch.models.pmgt import bce_with_logits
 from pmgt_tpu_torch.sampling.mcn import topk_lowest_index
-from pmgt_tpu_torch.tasks.pmgt_task import chunk_eval_inputs
 from pmgt_tpu_torch.train import engine
 from pmgt_tpu_torch.train.checkpoints import restore_checkpoint
 from pmgt_tpu_torch.train.optim import make_optimizer
@@ -93,10 +112,12 @@ class InteractionTaskBase:
         self.train_data = train_data
         self.valid_data = valid_data
         self.test_data = test_data
-        if args.train_batch_size % args.accumulation_step:
+        self.mesh = make_mesh(args.num_devices, self.device)
+        n_dev = self.mesh.size
+        if args.train_batch_size % (n_dev * args.accumulation_step):
             raise ValueError(
                 f"train_batch_size {args.train_batch_size} must be divisible "
-                f"by accumulation_step {args.accumulation_step}"
+                f"by num_devices*accumulation ({n_dev}*{args.accumulation_step})"
             )
         self.num_ng = args.extra.get("num_ng", 1)
         self._epoch_arrays: Optional[Tuple[torch.Tensor, ...]] = None
@@ -109,7 +130,7 @@ class InteractionTaskBase:
         args = self.args
         if state is not None:
             self.model.load_state_dict(state)
-        self.model.to(self.device).train()
+        replicate(self.mesh, self.model.to(self.device).train())
         m = len(self.train_data.pairs) * (1 + self.num_ng)
         extra = args.extra
         self.frozen = (self.frozen_param if extra.get("freeze_item_init_emb")
@@ -175,16 +196,24 @@ class InteractionTaskBase:
         """Zero the gradients, then forward and backward each of the
         ``accumulation_step`` micro-batches in order (loss scaled by
         1/accumulation_step), so ``.grad`` holds their mean gradient; a
-        frozen table's gradient is zeroed. Returns the mean loss on the
-        device."""
+        frozen table's gradient is zeroed. Each rank takes its share of
+        every micro-batch; the ranks' shares are equal, so the global mean
+        is the mean of the ranks' means and each rank's part is its mean
+        over the world size. Returns the mean loss on the device, the same
+        on every rank."""
         users, items, labels, gen = batch
-        accum = self.args.accumulation_step
+        mesh, accum = self.mesh, self.args.accumulation_step
+        m = users.shape[0] // accum
+        share = local_slice(mesh, m)
+        gen = lane_draws(mesh, gen, [(m, share.stop - share.start)])
         self.optimizer.zero_grad()
         total = None
-        for u, i, lab in zip(*(x.reshape(accum, -1) for x in (users, items, labels))):
-            loss = torch.mean(bce_with_logits(self.train_logits(u, i, gen), lab))
+        for u, i, lab in zip(*(x.reshape(accum, -1)[:, share] for x in (users, items, labels))):
+            loss = torch.mean(bce_with_logits(self.train_logits(u, i, gen), lab)) / mesh.size
             (loss / accum).backward()
             total = loss.detach() if total is None else total + loss.detach()
+        all_reduce_grads(mesh, self.model.parameters())
+        total = all_reduce(mesh, total)
         if self.frozen:
             for p in getattr(self.model, self.frozen).parameters():
                 if p.grad is not None:
@@ -272,8 +301,8 @@ class InteractionTaskBase:
         # a chunk must be able to hold the whole top-k
         item_chunk = min(max(item_chunk, k), num_items)
         all_users = np.arange(num_users, dtype=np.int32)
-        users_c, pos_c = chunk_eval_inputs(min(user_batch, num_users),
-                                           (all_users, self.positives()))
+        users_c, pos_c = rank_chunks(self.mesh, min(user_batch, num_users),
+                                     (all_users, self.positives()))
         score = self.scorer()
         ids_out, sc_out = [], []
         for users_b, pos_b in zip(users_c, pos_c):
@@ -285,8 +314,10 @@ class InteractionTaskBase:
             )
             ids_out.append(ids)
             sc_out.append(sc)
-        scores = torch.cat(sc_out)[:num_users].cpu().numpy().astype(np.float32)
-        item_ids = torch.cat(ids_out)[:num_users].cpu().numpy().astype(np.int32)
+        scores = gather_chunks(self.mesh, torch.stack(sc_out))[:num_users]
+        item_ids = gather_chunks(self.mesh, torch.stack(ids_out))[:num_users]
+        scores = scores.cpu().numpy().astype(np.float32)
+        item_ids = item_ids.cpu().numpy().astype(np.int32)
         item_ids = np.where(np.isneginf(scores), np.int32(-1), item_ids)
         return {"user_ids": all_users, "item_ids": item_ids, "scores": scores}
 
@@ -303,7 +334,7 @@ class InteractionTaskBase:
                 seeded(self.args.seed * 17 + (split == "test"), self.device),
                 reference_tiebreak=bool(self.args.extra.get("reference_tiebreak", False)),
             )
-            arrays = chunk_eval_inputs(self.eval_chunk_users, (users, cands, mask, labels))
+            arrays = rank_chunks(self.mesh, self.eval_chunk_users, (users, cands, mask, labels))
             self._eval_cache[split] = (len(users), [
                 torch.as_tensor(a, device=self.device, dtype=dt)
                 for a, dt in zip(arrays, (torch.int64, torch.int64, torch.float32, torch.float32))
@@ -324,8 +355,9 @@ class InteractionTaskBase:
             s, c = masked_bce_sums(logits, labels, mask, users_c[sl].shape[0])
             sums.append(s)
             cnts.append(c)
-        prediction = torch.cat(tops)[:n].cpu().numpy()
-        sums, cnts = torch.cat(sums).cpu().numpy(), torch.cat(cnts).cpu().numpy()
+        tops = torch.cat(tops).reshape(users_c.shape[:2] + (-1,))
+        prediction = gather_chunks(self.mesh, tops)[:n].cpu().numpy()
+        sums, cnts = (all_reduce(self.mesh, torch.cat(x)).cpu().numpy() for x in (sums, cnts))
         gt_sets = [data.user_pos[r, : data.user_pos_count[r]].tolist() for r in range(n)]
         prefix = "val" if split == "valid" else "test"
         results = {f"{prefix}/loss": float(np.mean(sums / np.maximum(cnts, 1)))}
@@ -397,9 +429,12 @@ def restore_eval_params(task, registry, run, run_id) -> None:
         logger.info("restored checkpoint from %s", path)
 
 
-def save_topk(args: TrainArgs, out: Dict[str, np.ndarray]) -> None:
-    if args.inference_result_path:
+def save_topk(args: TrainArgs, out: Dict[str, np.ndarray], mesh: Mesh) -> None:
+    """Write ``out`` to ``args.inference_result_path`` (rank 0 only;
+    every rank holds the gathered result) and wait until it is written."""
+    if args.inference_result_path and mesh.is_primary:
         np.savez(args.inference_result_path, **out)
         logger.info("wrote top-%d recommendations for %d users to %s",
                     out["item_ids"].shape[1], len(out["user_ids"]),
                     args.inference_result_path)
+    barrier(mesh)

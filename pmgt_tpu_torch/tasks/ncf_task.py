@@ -35,7 +35,6 @@ from pmgt_tpu_torch.tasks.interaction_base import (  # noqa: F401
     test,
     train,
 )
-from pmgt_tpu_torch.tasks.pmgt_task import reject_unported_options
 from pmgt_tpu_torch.train.checkpoints import restore_checkpoint
 from pmgt_tpu_torch.train.registry import RunRegistry
 
@@ -115,7 +114,6 @@ def check_args(args: TrainArgs) -> None:
         raise ValueError("NeuMF-pre requires --gmf-run-id and --mlp-run-id")
     if args.extra.get("item_init_emb_path") and args.model_name not in ("NeuMF-end", "MLP"):
         raise ValueError("item_init_emb_path requires model_name NeuMF-end or MLP")
-    reject_unported_options(args)
 
 
 def init_dataloader(args: TrainArgs, ctx: Dict[str, Any]) -> None:
@@ -143,5 +141,5 @@ def inference(args: TrainArgs, ctx: Dict[str, Any], registry, run) -> Dict[str, 
         k=int(args.extra.get("topk", TOPK)),
         exclude_train=not args.extra.get("include_seen_items", False),
     )
-    save_topk(args, out)
+    save_topk(args, out, task.mesh)
     return out

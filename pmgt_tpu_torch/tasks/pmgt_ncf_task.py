@@ -20,7 +20,9 @@ a call; K2 backward, five a training step) and their plain versions on the
 CPU. Unlike the JAX task, gradients honour ``accumulation_step``.
 ``mp_enabled`` runs the encoder in bf16 (``PMGTConfig.dtype``) with the
 feature tables stored in bf16 unless ``feat_tables_dtype`` says otherwise,
-as in the PMGT task.
+as in the PMGT task, and so do ``--shard-feat-tables`` and
+``--shard-graph-tables`` (the rank's row blocks; the context draws are the
+replicated draw's).
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from pmgt_tpu_torch.core.config import (
     TrainArgs,
     resolve_fusion_strategy,
 )
+from pmgt_tpu_torch.core.mesh import place_graph
 from pmgt_tpu_torch.core.quant import prepare_feat_tables
 from pmgt_tpu_torch.data.artifacts import load_artifacts
 from pmgt_tpu_torch.graph.container import NUM_SPECIAL_NODES
@@ -54,7 +57,7 @@ from pmgt_tpu_torch.tasks.interaction_base import (  # noqa: F401
     test,
     train,
 )
-from pmgt_tpu_torch.tasks.pmgt_task import feat_tables_dtype, reject_unported_options
+from pmgt_tpu_torch.tasks.pmgt_task import feat_tables_dtype
 
 logger = logging.getLogger("pmgt_tpu_torch")
 
@@ -116,9 +119,11 @@ class PMGTNCFTask(InteractionTaskBase):
             model=args.model_name,
         )
         self.model.init_weights(torch.Generator().manual_seed(int(args.seed)))
-        self.graph = artifacts.graph.to(self.device)
-        self.feat_tables = prepare_feat_tables(artifacts.feat_init_embs,
-                                               feat_tables_dtype(args), self.device)
+        self.graph = place_graph(self.mesh, artifacts.graph, bool(e.get("shard_graph_tables")),
+                                 self.device)
+        self.feat_tables = prepare_feat_tables(
+            artifacts.feat_init_embs, feat_tables_dtype(args), self.device,
+            shard=self.mesh if e.get("shard_feat_tables") else None)
         self.item_to_node = torch.as_tensor(item_to_node_map(artifacts), dtype=torch.int64,
                                             device=self.device)
         self.eval_chunk_users = max(args.test_batch_size // 64, 1)
@@ -183,7 +188,6 @@ def check_args(args: TrainArgs) -> None:
         raise ValueError(f"invalid model_name {args.model_name}")
     if args.mode in ("eval", "inference") and args.run_id is None:
         raise ValueError(f"mode {args.mode} requires --run-id")
-    reject_unported_options(args)
 
 
 def init_dataloader(args: TrainArgs, ctx: Dict[str, Any]) -> None:
@@ -209,5 +213,5 @@ def inference(args: TrainArgs, ctx: Dict[str, Any], registry, run) -> Dict[str, 
         item_chunk=int(args.extra.get("serve_item_chunk", 1024)),
         exclude_train=not args.extra.get("include_seen_items", False),
     )
-    save_topk(args, out)
+    save_topk(args, out, task.mesh)
     return out

@@ -36,6 +36,23 @@ optimizer, step count) and on resume calls ``on_resume(global_step,
 start_epoch)``, so a resumed run continues the per-step seeds and the
 schedule where it stopped.
 
+Data parallelism (``--num-devices``, ``core/mesh``): the task runs in
+every rank of the group with the same seeds, so every rank draws the same
+schedule, contexts and pair tables. Micro-batch j of a step is the global
+slice ``targets[j·m:(j+1)·m]`` (m = batch / accumulation) and rank r takes
+its r-th contiguous 1/N; the model draws the global micro-batch's random
+tensors and keeps the rank's lanes, and divides by global denominators
+(``models/pmgt.py``); the gradients are summed over the ranks in one
+all-reduce before the clip and the update, so every rank applies the same
+update to the same parameters (broadcast from rank 0 at the start).
+Evaluation and export chunks are padded to a multiple of the world size,
+each rank encodes its share of a chunk and the outputs are gathered to
+every rank. ``--shard-feat-tables`` and ``--shard-graph-tables`` keep each
+rank's row block of the feature tables and of the per-node graph tables
+(``core/mesh.place_graph``); the contexts drawn over sharded graph tables
+are the replicated draw's, bit for bit, and ``SamplingConfig.num_total``
+stays the true node count.
+
 Torch generators give other streams than JAX keys: the seeds are the same
 integers and the distributions are the same, the draws are not.
 """
@@ -55,6 +72,18 @@ from pmgt_tpu_torch.core.config import (
     resolve_fusion_strategy,
 )
 from pmgt_tpu_torch.core.device import resolve_device
+from pmgt_tpu_torch.core.mesh import (
+    all_reduce,
+    all_reduce_grads,
+    barrier,
+    gather_chunks,
+    lane_draws,
+    local_slice,
+    make_mesh,
+    place_graph,
+    rank_chunks,
+    replicate,
+)
 from pmgt_tpu_torch.core.quant import prepare_feat_tables
 from pmgt_tpu_torch.data.artifacts import DatasetArtifacts, load_artifacts
 from pmgt_tpu_torch.data.split import train_test_split
@@ -77,25 +106,6 @@ logger = logging.getLogger("pmgt_tpu_torch")
 # (ctx_ids [N_total, S], ctx_mask [N_total, S], pairs or None), where
 # pairs = (pair_nodes, labels, pair_valid), each [N_total, P].
 PhaseCtx = Tuple[torch.Tensor, torch.Tensor, Optional[Tuple[torch.Tensor, ...]]]
-
-
-def chunk_eval_inputs(chunk: int, arrays, pad_values=None):
-    """Pad host arrays [n, ...] to whole chunks of ``chunk`` rows →
-    [C, chunk, ...] numpy arrays (single device). ``pad_values`` gives one
-    fill value per array (default 0); node-id arrays pad with
-    NUM_SPECIAL_NODES so padding hits a real row and is masked later."""
-    n = len(arrays[0])
-    c = max((n + chunk - 1) // chunk, 1)
-    if pad_values is None:
-        pad_values = (0,) * len(arrays)
-    out = []
-    for a, fill in zip(arrays, pad_values):
-        a = np.asarray(a)
-        pad = c * chunk - n
-        if pad:
-            a = np.concatenate([a, np.full((pad,) + a.shape[1:], fill, a.dtype)])
-        out.append(a.reshape((c, chunk) + a.shape[1:]))
-    return out
 
 
 class PMGTTask:
@@ -125,10 +135,12 @@ class PMGTTask:
         self.train_nodes = np.asarray(train_nodes, np.int64)
         self.valid_nodes = np.asarray(valid_nodes, np.int64)
         extra = args.extra
-        if args.train_batch_size % args.accumulation_step:
+        self.mesh = make_mesh(args.num_devices, self.device)
+        n_dev = self.mesh.size
+        if args.train_batch_size % (n_dev * args.accumulation_step):
             raise ValueError(
                 f"train_batch_size {args.train_batch_size} must be divisible "
-                f"by accumulation_step {args.accumulation_step}"
+                f"by num_devices*accumulation ({n_dev}*{args.accumulation_step})"
             )
         self.use_ctx_cache = bool(extra.get("ctx_cache", True))
 
@@ -165,7 +177,7 @@ class PMGTTask:
             mask_node_ratio=extra.get("mask_node_ratio", 0.16),
         )
         self.model.init_weights(torch.Generator().manual_seed(int(args.seed)))
-        self.model.to(self.device).train()
+        replicate(self.mesh, self.model.to(self.device).train())
         steps_per_epoch = max(len(self.train_nodes) // args.train_batch_size, 1)
         self.optimizer = make_optimizer(
             self.model,
@@ -178,9 +190,11 @@ class PMGTTask:
             gradient_max_norm=args.gradient_max_norm,
         )
 
-        self.graph = artifacts.graph.to(self.device)
+        self.graph = place_graph(self.mesh, artifacts.graph,
+                                 bool(extra.get("shard_graph_tables")), self.device)
         self.feat_tables = prepare_feat_tables(
-            artifacts.feat_init_embs, feat_tables_dtype(args), self.device
+            artifacts.feat_init_embs, feat_tables_dtype(args), self.device,
+            shard=self.mesh if extra.get("shard_feat_tables") else None,
         )
         # One fixed draw per phase tag, kept for the task's lifetime.
         self._phase_ctx_cache: Dict[Tuple, PhaseCtx] = {}
@@ -309,18 +323,26 @@ class PMGTTask:
         """Zero the gradients, then forward and backward over the
         ``accumulation_step`` micro-batches of ``targets`` in order, each
         loss scaled by 1/accumulation_step, so ``.grad`` holds the mean of
-        the micro-batch gradients. Returns the mean loss, gsr and nfr as
-        device scalars."""
+        the micro-batch gradients (summed over the ranks, each rank taking
+        its share of every micro-batch). Returns the mean loss, gsr and nfr
+        as device scalars, the same on every rank."""
+        mesh = self.mesh
+        accum = self.args.accumulation_step
+        micros = targets.reshape(accum, -1)
+        m = micros.shape[1]
+        share = local_slice(mesh, m)
         if self.use_ctx_cache:
             if self._train_ctx is None:
                 self._get_ctx(("train", 0))
             ctx_ids, ctx_mask, pairs = self._train_ctx
         else:
-            sampling = self.sampling_generators(generator)
-        accum = self.args.accumulation_step
+            b, p = share.stop - share.start, self.sampling.max_total_samples
+            g_ctx, g_pairs, g_pair_ctx = self.sampling_generators(generator)
+            sampling = (lane_draws(mesh, g_ctx, [(m, b)]), lane_draws(mesh, g_pairs, [(m, b)]),
+                        lane_draws(mesh, g_pair_ctx, [(m * p, b * p)]))
         self.optimizer.zero_grad()
         total = None
-        for micro in targets.reshape(accum, -1):
+        for micro in micros[:, share]:
             if self.use_ctx_cache:
                 batch = make_pretrain_batch_cached(ctx_ids, ctx_mask, micro, pairs)
             else:
@@ -328,12 +350,13 @@ class PMGTTask:
                                             generators=sampling)
             out = self.model(
                 self.feat_tables, batch, deterministic=False, compute_nfr=True,
-                generator=generator,
+                generator=generator, mesh=mesh,
             )
             (out.loss / accum).backward()
             part = torch.stack([out.loss, out.gsr_loss, out.nfr_loss]).detach()
             total = part if total is None else total + part
-        loss, gsr, nfr = total / accum
+        all_reduce_grads(mesh, self.model.parameters())
+        loss, gsr, nfr = all_reduce(mesh, total) / accum
         return {"loss": loss, "gsr": gsr, "nfr": nfr}
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
@@ -364,8 +387,8 @@ class PMGTTask:
         f32 (the JAX task takes the sigmoid in bf16 numpy)."""
         ctx_ids, ctx_mask, pairs = self._get_ctx((split,))
         nodes = self.valid_nodes
-        targets_c, sv_c = chunk_eval_inputs(
-            self.args.test_batch_size,
+        targets_c, sv_c = rank_chunks(
+            self.mesh, self.args.test_batch_size,
             (nodes, np.ones(len(nodes), np.float32)),
             pad_values=(NUM_SPECIAL_NODES, 0),
         )
@@ -382,9 +405,10 @@ class PMGTTask:
             logits_all.append(out.logits.to(torch.float32))
             labels_all.append(batch.labels)
             valid_all.append(batch.pair_valid * sv[:, None])
-        logits = torch.cat(logits_all).cpu().numpy().ravel()
-        labels = torch.cat(labels_all).cpu().numpy().ravel()
-        valid = torch.cat(valid_all).cpu().numpy().ravel() > 0
+        logits, labels, valid = (
+            gather_chunks(self.mesh, torch.stack(x)).cpu().numpy().ravel()
+            for x in (logits_all, labels_all, valid_all))
+        valid = valid > 0
         logits, labels = logits[valid], labels[valid]
 
         probs = stable_sigmoid(logits)
@@ -403,9 +427,7 @@ class PMGTTask:
         n = self.artifacts.num_nodes
         ctx_ids, ctx_mask, _ = self._get_ctx(("inference",))
         node_ids = np.arange(NUM_SPECIAL_NODES, n + NUM_SPECIAL_NODES)
-        (targets_c,) = chunk_eval_inputs(
-            bs, (node_ids,), pad_values=(NUM_SPECIAL_NODES,)
-        )
+        (targets_c,) = rank_chunks(self.mesh, bs, (node_ids,), pad_values=(NUM_SPECIAL_NODES,))
         proj = self._proj_tables()
         cls = []
         for targets in targets_c:
@@ -415,7 +437,7 @@ class PMGTTask:
                 deterministic=True, proj_tables=proj,
             )
             cls.append(hidden[:, 0])
-        out = torch.cat(cls)[:n]
+        out = gather_chunks(self.mesh, torch.stack(cls))[:n]
         return out.to(torch.float32).cpu().numpy()
 
     def _proj_tables(self):
@@ -430,17 +452,6 @@ class PMGTTask:
 # workload contract (the functions the CLI's ``train_model`` calls)
 # ----------------------------------------------------------------------
 
-# Options the JAX package has and the port does not yet: option → (the
-# values the port runs, the ROADMAP.md item that ports the rest). Any other
-# value raises NotImplementedError when a run starts (not under
-# --save-args). Only the multi-GPU options are left.
-UNPORTED_OPTIONS = {
-    "shard_feat_tables": ((False,), "§1, multi-GPU: row-sharded tables"),
-    "shard_graph_tables": ((False,), "§1, multi-GPU: row-sharded tables"),
-    "num_devices": ((None, 1), "§1, multi-GPU"),
-}
-
-
 def feat_tables_dtype(args: TrainArgs) -> str:
     """The feature tables' storage: ``--feat-tables-dtype``, else bf16
     under the bf16 compute policy (the step would cast them to bf16
@@ -449,25 +460,11 @@ def feat_tables_dtype(args: TrainArgs) -> str:
                or ("bfloat16" if args.mp_enabled else "float32"))
 
 
-def reject_unported_options(args: TrainArgs) -> None:
-    """Raise ``NotImplementedError`` for an option of ``UNPORTED_OPTIONS``
-    set to a value the port does not run (options a workload lacks are
-    skipped)."""
-    for name, (ported, item) in UNPORTED_OPTIONS.items():
-        value = getattr(args, name, ported[0])
-        if value not in ported:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported to pmgt_tpu_torch yet "
-                f"(ROADMAP.md {item})"
-            )
-
-
 def check_args(args: TrainArgs) -> None:
     if args.early_criterion not in ("loss", "auc"):
         raise ValueError(f"invalid early_criterion {args.early_criterion}")
     if args.mode in ("eval", "inference") and args.run_id is None:
         raise ValueError(f"mode {args.mode} requires --run-id")
-    reject_unported_options(args)
 
 
 def init_run(args: TrainArgs) -> None:
@@ -597,11 +594,12 @@ def inference(args: TrainArgs, ctx: Dict[str, Any], registry, run) -> np.ndarray
     task: PMGTTask = ctx["task"]
     _maybe_restore(args, task, load_best=True)
     emb = task.export_embeddings()
-    if args.inference_result_path:
+    if args.inference_result_path and task.mesh.is_primary:  # every rank holds the export
         os.makedirs(
             os.path.dirname(os.path.abspath(args.inference_result_path)),
             exist_ok=True,
         )
         np.save(args.inference_result_path, emb)
         logger.info("saved node embeddings to %s", args.inference_result_path)
+    barrier(task.mesh)
     return emb

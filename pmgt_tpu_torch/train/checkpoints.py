@@ -11,7 +11,10 @@ Crash safety: a save writes ``<path>.tmp_new`` first; finalize renames the
 previous complete copy aside to ``<path>.old``, renames the new one in and
 only then deletes the aside copy, so a kill at any instant leaves at least
 one complete checkpoint on disk. ``checkpoint_exists`` promotes a stranded
-aside copy back. The aside copy is deleted before the next rename only
+aside copy back.
+
+In a data-parallel group only rank 0 writes (saves, ``best.json`` and the
+promotion); every rank reads, after a barrier (``train/engine.py``). The aside copy is deleted before the next rename only
 when ``<path>`` itself is complete: after a finalize that failed between
 its two renames, the aside copy is the only complete checkpoint and stays
 until a new one is in place.
@@ -25,6 +28,8 @@ import shutil
 from typing import Any, Optional, Sequence, Union
 
 import torch
+
+from pmgt_tpu_torch.core.mesh import current_mesh
 
 CKPT_FILE = "state.pt"
 
@@ -58,7 +63,7 @@ def checkpoint_exists(path: str) -> bool:
     checkpoint at ``path + ".old"``."""
     path = os.path.abspath(path)
     old = path + ".old"
-    if not os.path.isdir(path) and os.path.isdir(old):
+    if not os.path.isdir(path) and os.path.isdir(old) and current_mesh().is_primary:
         os.replace(old, path)
     return os.path.isdir(path)
 
@@ -66,7 +71,10 @@ def checkpoint_exists(path: str) -> bool:
 def save_checkpoint(path: Union[str, Sequence[str]], payload: Any) -> None:
     """Save ``payload`` at ``path``, or at each of a sequence of paths,
     atomically replacing any checkpoint there. The payload is moved to the
-    CPU and serialized once, whatever the number of paths."""
+    CPU and serialized once, whatever the number of paths. Only rank 0
+    of a group writes."""
+    if not current_mesh().is_primary:
+        return
     paths = [path] if isinstance(path, str) else list(path)
     buf = io.BytesIO()
     torch.save(_to_cpu(payload), buf)
@@ -90,6 +98,8 @@ def restore_checkpoint(path: str) -> Any:
 
 
 def write_best_info(ckpt_dir: str, monitor: str, value: float, epoch: int) -> None:
+    if not current_mesh().is_primary:
+        return
     with open(os.path.join(ckpt_dir, "best.json"), "w", encoding="utf-8") as f:
         json.dump(
             {"monitor": monitor, "value": float(value), "epoch": int(epoch)}, f

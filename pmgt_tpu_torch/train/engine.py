@@ -8,6 +8,15 @@ tensor, which the engine fetches once per evaluation group, never once per
 step. The JAX engine's scan, speculative and pipelined dispatch have no
 counterpart. Everything the engine decides (patience, checkpoints, rows of
 ``metrics.jsonl``, status) follows the JAX ``fit``.
+
+In a data-parallel group every rank runs ``fit`` on the same metrics (the
+task all-reduces its losses and gathers its evaluation outputs), so every
+rank takes the same decisions; only rank 0 writes (``train/registry.py``,
+``train/checkpoints.py``). A resume loads rank 0's ``last`` on every rank,
+the preemption flag is max-reduced at each evaluation point (a signal to
+one rank stops every rank after the same epoch; without it the others
+would wait in the next collective), and ``fit`` ends with a barrier, so no
+rank reads a checkpoint before rank 0 has written it.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ from typing import Any, Dict, Optional, Protocol
 import numpy as np
 import torch
 
+from pmgt_tpu_torch.core.mesh import any_rank, barrier, broadcast_object, current_mesh
 from pmgt_tpu_torch.train.checkpoints import (
     checkpoint_exists,
     restore_checkpoint,
@@ -214,6 +224,7 @@ def fit(
             eval_interval,
             eval_interval,
         )
+    mesh = current_mesh()
     logged_run = registry is not None and run is not None
     if logged_run:
         # Clears a stale INTERRUPTED/FAILED status when resuming.
@@ -227,7 +238,9 @@ def fit(
 
     if resume and ckpt_dir is not None:
         last = os.path.join(ckpt_dir, "last")
-        if checkpoint_exists(last):
+        # rank 0 looks first (and promotes a stranded copy), then every
+        # rank restores the same checkpoint
+        if broadcast_object(mesh, checkpoint_exists(last) if mesh.is_primary else None):
             payload = restore_checkpoint(last)
             task.load_state_dict(payload["state"])
             meta = payload["meta"]
@@ -337,7 +350,8 @@ def fit(
             # always saves a resumable `last`.
             prune = task_should_prune(task, value, epoch)
             stop_early = bool(early and patience >= early)
-            stopping = guard.requested or prune or stop_early or (e0 + g) >= num_epochs
+            preempted = any_rank(mesh, guard.requested)
+            stopping = preempted or prune or stop_early or (e0 + g) >= num_epochs
             if ckpt_dir is not None:
                 do_last = stopping or eval_count % ckpt_interval == 0
                 # One payload, serialized once, for `last` and `best` both.
@@ -351,7 +365,7 @@ def fit(
                 if improved:
                     write_best_info(ckpt_dir, monitor, best_value, epoch)
 
-            if guard.requested:
+            if preempted:
                 if logged_run:
                     registry.set_status(run, "INTERRUPTED")
                 logger.warning(
@@ -391,4 +405,5 @@ def fit(
                 step=global_step,
                 epoch=num_epochs,
             )
+    barrier(mesh)
     return results

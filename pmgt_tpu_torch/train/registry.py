@@ -15,6 +15,10 @@ either package can list the other's runs:
 
 The checkpoint directories themselves are the port's format
 (``train/checkpoints.py``), not orbax's.
+
+In a data-parallel group only rank 0 writes; ``create_run`` broadcasts its
+run id to the other ranks (a failed broadcast raises), so every rank
+names the one run.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ import uuid
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
+from pmgt_tpu_torch.core.mesh import broadcast_object, current_mesh
 from pmgt_tpu_torch.train.checkpoints import checkpoint_exists
 
 logger = logging.getLogger("pmgt_tpu_torch")
@@ -77,7 +82,16 @@ class RunRegistry:
         run_script: Optional[str] = None,
         run_id: Optional[str] = None,
     ) -> RunInfo:
-        run_id = run_id or uuid.uuid4().hex
+        """Create the run directory (rank 0) and return the run on every
+        rank: rank 0's id reaches the others once its files are written."""
+        mesh = current_mesh()
+        if mesh.is_primary:
+            run_id = run_id or uuid.uuid4().hex
+            self._write_run(experiment_name, run_id, params, run_name, tags, run_script)
+        run_id = broadcast_object(mesh, run_id if mesh.is_primary else None)
+        return RunInfo(run_id, experiment_name, os.path.join(self.log_dir, experiment_name, run_id))
+
+    def _write_run(self, experiment_name, run_id, params, run_name, tags, run_script) -> None:
         run_dir = os.path.join(self.log_dir, experiment_name, run_id)
         os.makedirs(os.path.join(run_dir, "checkpoints"), exist_ok=True)
         os.makedirs(os.path.join(run_dir, "artifacts"), exist_ok=True)
@@ -96,9 +110,7 @@ class RunRegistry:
                 run_script,
                 os.path.join(run_dir, "artifacts", os.path.basename(run_script)),
             )
-        info = RunInfo(run_id, experiment_name, run_dir)
-        self.set_status(info, "RUNNING")
-        return info
+        self.set_status(RunInfo(run_id, experiment_name, run_dir), "RUNNING")
 
     def get_run(self, run_id: str) -> RunInfo:
         """Find a run by id across experiments."""
@@ -139,12 +151,16 @@ class RunRegistry:
         return sorted(runs, key=created, reverse=True)
 
     def set_status(self, run: RunInfo, status: str) -> None:
+        if not current_mesh().is_primary:
+            return
         with open(os.path.join(run.run_dir, "status"), "w", encoding="utf-8") as f:
             f.write(status + "\n")
 
     def log_metrics(
         self, run: RunInfo, metrics: Dict[str, float], step: int, epoch: int
     ) -> None:
+        if not current_mesh().is_primary:
+            return
         with open(os.path.join(run.run_dir, "metrics.jsonl"), "a", encoding="utf-8") as f:
             for name, value in metrics.items():
                 row = {"step": int(step), "epoch": int(epoch), "name": name,

@@ -10,10 +10,13 @@ end to end on the CPU.
   status, checkpoints, metrics rows, the exported ``[num_nodes, hidden]``
   float32 ``.npy``, and eval leaving the run's status as it was (the JAX
   CLI relabels it).
-- The multi-GPU options raise ``NotImplementedError`` when a run starts,
-  and not under ``--save-args``; every other option runs (one CPU step
-  each), and the published training scripts' argument lists parse and
-  pass ``check_args``.
+- The multi-GPU options run: ``--shard-feat-tables`` in one process,
+  ``--num-devices 2`` as two gloo ranks on the CPU (one run, FINISHED),
+  and a coordinator address without the rest of the multi-host trio is
+  refused before a run is created; ``hp-tuning`` with more than one
+  device is the one refusal left, naming its ROADMAP item. Every other
+  option runs (one CPU step each), and the published training scripts'
+  argument lists parse and pass ``check_args``.
 """
 from __future__ import annotations
 
@@ -30,7 +33,6 @@ from pmgt_tpu.core.config import TrainArgs as JTrainArgs
 from pmgt_tpu_torch.cli.main import _make_args, build_parser, main
 from pmgt_tpu_torch.core.config import TrainArgs
 from pmgt_tpu_torch.data.artifacts import load_artifacts
-from pmgt_tpu_torch.tasks.pmgt_task import UNPORTED_OPTIONS
 from pmgt_tpu_torch.train.checkpoints import read_best_info
 from pmgt_tpu_torch.train.registry import RunRegistry
 
@@ -164,17 +166,41 @@ def test_eval_and_inference_need_a_run_with_a_checkpoint(tmp_path, data_dir):
     ["--shard-feat-tables"], ["--num-devices", "2"],
     ["--coordinator-address", "localhost:1234"],
 ])
-def test_unported_options_raise_when_a_run_starts(tmp_path, data_dir, option):
+def test_unported_options_raise_when_a_run_starts(tmp_path, data_dir, option, monkeypatch):
+    """The multi-GPU options the port refused before: the shard flag and
+    two ranks run one CPU epoch; a coordinator address alone is refused
+    before any run is created."""
+    from pmgt_tpu_torch.core import mesh as tmesh
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the spawned ranks' threads
+    real = tmesh.launch
+    monkeypatch.setattr(tmesh, "launch",
+                        lambda *a, **k: real(*a, run_timeout_s=300, **k))  # under a deadline
     logs = str(tmp_path / "logs")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        main(_cmd(data_dir, logs, *option))
-    assert not os.path.exists(logs)  # refused before any run was created
+    if option[0] == "--coordinator-address":
+        with pytest.raises(ValueError, match="--num-processes"):
+            main(_cmd(data_dir, logs, *option))
+        assert not os.path.exists(logs)
+    else:
+        results = main(_cmd(data_dir, logs, *option, "--num-epochs", "1",
+                            "--train-batch-size", "96"))
+        assert np.isfinite(list(results.values())).all()
+        (run,) = RunRegistry(logs).list_runs()
+        assert run.status == "FINISHED"
     main(["--save-args", str(tmp_path / "a.json"), *_cmd(data_dir, logs, *option)[2:]])
     assert os.path.exists(tmp_path / "a.json")
 
 
-def test_every_unported_option_is_named():
-    assert set(UNPORTED_OPTIONS) == {"shard_feat_tables", "shard_graph_tables", "num_devices"}
+def test_every_unported_option_is_named(tmp_path):
+    """What is left unported is named with its ROADMAP item: hp-tuning
+    over several devices."""
+    from pmgt_tpu_torch.cli import hpo
+
+    for extra in ({"num_devices": 2}, {"coordinator_address": "localhost:1"}):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md §1, hp-tuning over several"):
+            hpo._objective(hpo.RandomTrial(0, np.random.default_rng(0)),
+                           {"log_dir": str(tmp_path), **extra}, {}, "pmgt", "test/auc", False,
+                           "cpu")
 
 
 @pytest.mark.parametrize("option", [

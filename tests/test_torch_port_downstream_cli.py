@@ -16,8 +16,10 @@ downstream pipeline end to end on the CPU.
   ``train-pmgt-ncf`` in train, eval and inference modes.
 - Status rules: a run that fails while training is FAILED; eval and
   inference against an existing run leave its status as it was.
-- The multi-GPU options raise ``NotImplementedError`` when a run starts
-  (not under ``--save-args``); the options the commands refused before
+- The multi-GPU options run: each command at two gloo ranks on the CPU
+  gives the 1-rank run's test metrics (losses rtol 2e-4, ranking metrics
+  and AUC equal), PMGT_NCF with both shard flags; the options the commands
+  refused before
   (``--mp-enabled``, ``--profile-dir``, ``--feat-tables-dtype``) run, and
   ``--mp-enabled`` leaves NCF and DCN exactly as they are without it; the
   default device is the card, so without one a run refuses to start.
@@ -262,23 +264,66 @@ def test_status_rules(tmp_path, pipeline, monkeypatch):
     assert run.status == "INTERRUPTED"
 
 
-# The options that still raise: the multi-GPU ones.
+# The multi-GPU options the commands refused before (the test batch of
+# PMGT_NCF gives evaluation chunks of 2 users, a multiple of the ranks).
 MULTI_GPU = {
-    "train-ncf": ["--model-name", "MLP", "--num-devices", "2", "--process-id", "1"],
-    "train-dcn": ["--model-name", "DCN", "--num-devices", "2"],
-    "train-pmgt-ncf": ["--model-name", "MLP", "--shard-feat-tables", "--shard-graph-tables",
-                       "--num-devices", "4"],
+    "train-ncf": ["--model-name", "MLP", "--factor-num", "4", "--max-sample-items", "20",
+                  "--dropout", "0.1", "--num-devices", "2", "--process-id", "1"],
+    "train-dcn": ["--model-name", "DCN", "--factor-num", "4", "--max-sample-items", "5",
+                  "--early-criterion", "auc", "--num-devices", "2"],
+    "train-pmgt-ncf": ["--model-name", "MLP", "--hidden-size", "32", "--intermediate-size", "16",
+                       "--num-hidden-layers", "1", "--factor-num", "4", "--max-sample-items",
+                       "20", "--test-batch-size", "128", "--shard-feat-tables",
+                       "--shard-graph-tables", "--num-devices", "2"],
 }
 
 
+MULTI_GPU_FLAGS = ("--shard-feat-tables", "--shard-graph-tables")
+MULTI_GPU_OPTIONS = ("--num-devices", "--process-id", "--num-processes", "--coordinator-address")
+
+
+def one_rank_argv(argv):
+    """``argv`` without its multi-GPU flags and options (by name)."""
+    out, it = [], iter(argv)
+    for a in it:
+        if a in MULTI_GPU_OPTIONS:
+            next(it)
+        elif a not in MULTI_GPU_FLAGS:
+            out.append(a)
+    return out
+
+
 @pytest.mark.parametrize("cmd", sorted(ARGVS))
-def test_unported_options_raise_when_a_run_starts(tmp_path, pipeline, cmd):
-    logs = str(tmp_path / "logs")
+def test_unported_options_raise_when_a_run_starts(tmp_path, pipeline, cmd, monkeypatch):
+    """The multi-GPU options run: two gloo ranks on the CPU give the
+    1-rank run's test metrics; ``--save-args`` records them."""
+    from pmgt_tpu_torch.core import mesh as tmesh
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the spawned ranks' threads
+    launched, real = [], tmesh.launch
+
+    def bounded(fn, nprocs, *a, **k):  # counted, and under a deadline
+        launched.append(nprocs)
+        return real(fn, nprocs, *a, run_timeout_s=300, **k)
+
+    monkeypatch.setattr(tmesh, "launch", bounded)
     argv = MULTI_GPU[cmd]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        main(["--device", "cpu", cmd, "--dataset-name", "synth", "--data-dir", pipeline["data"],
-              "--log-dir", logs, *argv])
-    assert not os.path.exists(logs)
+    one = one_rank_argv(argv)
+    assert not set(one) & {*MULTI_GPU_FLAGS, *MULTI_GPU_OPTIONS}
+    results = []
+    for n, a in ((1, one), (2, argv)):
+        results.append(main(["--device", "cpu", cmd, "--dataset-name", "synth", "--data-dir",
+                             pipeline["data"], "--log-dir", str(tmp_path / f"logs{n}"),
+                             "--train-batch-size", "32", "--num-epochs", "1", *a]))
+        assert launched == ([] if n == 1 else [2])  # the reference ran in this process
+    assert results[0].keys() == results[1].keys()
+    for k, want in results[0].items():
+        if k.endswith("loss"):
+            assert results[1][k] == pytest.approx(want, rel=2e-4), k
+        else:
+            assert results[1][k] == want, k
+    (run,) = RunRegistry(str(tmp_path / "logs2")).list_runs()
+    assert run.status == "FINISHED"
     main(["--save-args", str(tmp_path / "a.json"), cmd, "--dataset-name", "synth", *argv])
     assert os.path.exists(tmp_path / "a.json")
 

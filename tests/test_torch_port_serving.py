@@ -37,6 +37,7 @@ from pmgt_tpu.tasks import dcn_task as jdcn_task
 from pmgt_tpu.tasks import ncf_task as jncf_task
 from pmgt_tpu.tasks import pmgt_ncf_task as jpmgt_ncf_task
 from pmgt_tpu_torch.core.config import TrainArgs as TArgs
+from pmgt_tpu_torch.core.mesh import chunk_eval_inputs
 from pmgt_tpu_torch.data import interactions as tint
 from pmgt_tpu_torch.data.synthetic import make_synthetic_dataset as tmake
 from pmgt_tpu_torch.models.interop import (
@@ -45,7 +46,6 @@ from pmgt_tpu_torch.models.interop import (
     pmgt_ncf_params_from_flax,
 )
 from pmgt_tpu_torch.tasks import dcn_task, ncf_task, pmgt_ncf_task
-from pmgt_tpu_torch.tasks.pmgt_task import chunk_eval_inputs
 
 NUM_USERS, NUM_ITEMS = 13, 17
 EXTRA = {
