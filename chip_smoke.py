@@ -3,8 +3,9 @@ holds each against its plain PyTorch version, drives the serving path and
 the training path, and checks what comes out.
 
     python3 chip_smoke.py                 # one card
-    python3 chip_smoke.py --multi-card    # only phase 16b's PMGT jobs at 2
-                                          # and 4 NCCL ranks, a card each
+    python3 chip_smoke.py --multi-card    # only phase 21's PMGT jobs and the
+                                          # hp-tuning command at 2 and 4 NCCL
+                                          # ranks, a card each
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -146,8 +147,49 @@ Phases (any failure raises and the script exits non-zero):
     int8`` and ``--profile-dir`` (a trace file written); step-1 gradients
     with and without checkpointing (f32) within 1e-6·max|g| + 1e-10.
 
-16b. Data parallelism. One NCCL rank on the card, this process joined
-    through the multi-host trio's path (``initialize_distributed``):
+17. ``preprocess`` through ``main()`` on a seeded review dump in the
+    Amazon layout (``write_review_dump``: 12,000 items, 150,000 reviewers,
+    940,000 reviews before 2015-01-01 and 60,000 after): node, edge, user
+    and pair counts and each stage's host time; the native pair counter
+    against scipy's sparse product (identical edges) and the native alias
+    builder against the Python loop (bit-equal tables), each timed, on the
+    run's own inputs; ``load_artifacts`` reading the result back; a second
+    run with seeded ``_feats.npz`` files and ``--extract-features`` fills
+    exactly those rows. At least 10,000 nodes; no kernel launched.
+18. ``hp-tuning --train-name pmgt`` with config/hpo/hpo_pmgt_params.yaml and
+    a copy of config/hpo/train_pmgt_params.json (``data_dir``,
+    ``dataset_name`` and ``log_dir`` changed; one short epoch: valid 0.9,
+    test batch 1,024) on phase 17's data: 2 trials, then the same study
+    resumed to 3 (exactly one more). Per trial, counted by the port's
+    trial records (read just before and just after each trial): its
+    params, epoch time and objective; FINISHED; the objective equal to
+    its logged ``val/auc`` within 1e-6; K2 = L a step and K1 = L a step +
+    L an evaluation chunk; ``torch.cuda.memory_allocated()`` after
+    ``gc.collect()`` back within 16 MB of its value before the first
+    trial.
+19. ``hp-tuning --train-name ncf --enable-trial-pruning`` with
+    config/hpo/hpo_ncf_neumf_pmgt_params.yaml (NeuMF-PMGT, ``prune: true``
+    arms), its batch pinned to 256 and its
+    ``node_feat*_{32,64,128}dim.npy`` statics rewritten to
+    ``train-pmgt --mode inference`` exports of phase 17's data at hidden
+    32, 64 and 128 (each trained one short epoch first): 2 COMPLETE trials,
+    every trial that drew a prune arm PRUNED and no other, ``should_prune``
+    asked once an epoch and never True (the built-in study), each COMPLETE
+    objective equal to its logged ``val/n20``.
+20. The feature extractors (``data/feature_extraction.py``) on the card
+    at Inception-v4's and BERT-base's output widths with seeded stand-in
+    models (the card machine has no timm, transformers or PIL): 300 items
+    of 1–3 3×299×299 arrays through ``extract_visual_features`` (a
+    1,536-wide CNN with timm's surface, a numpy transform) and 1–3 reviews
+    through ``extract_textual_features`` (a 768-wide encoder with a
+    stand-in tokenizer, ``max_length`` 128). Each row equals a CPU
+    recomputation with the same models within 1e-4; the rows written with
+    ``save_feats_npz`` are consumed by ``preprocess --extract-features``
+    on a seeded dump over the same items; times per 1,000 images and per
+    1,000 reviews.
+21. Data parallelism (run last). One NCCL rank on the card,
+    this process joined through the multi-host trio's path
+    (``initialize_distributed``):
     full-width ``train-pmgt`` with ``--shard-feat-tables
     --shard-graph-tables`` (one epoch, evaluate, export), then one epoch
     of ``run_training`` with the trio (engine, run registry,
@@ -166,34 +208,26 @@ Phases (any failure raises and the script exits non-zero):
     outside near-ties (1e-4·max(1, max|score|)). Each line: backend,
     ranks, card, each rank's K1/K2 counts (zeroed just before and read
     just after), the step's time and its all-reduce and row-gather times
-    (CUDA events).
-17. ``preprocess`` through ``main()`` on a seeded review dump in the
-    Amazon layout (``write_review_dump``: 12,000 items, 150,000 reviewers,
-    940,000 reviews before 2015-01-01 and 60,000 after): node, edge, user
-    and pair counts and each stage's host time; the native pair counter
-    against scipy's sparse product (identical edges) and the native alias
-    builder against the Python loop (bit-equal tables), each timed, on the
-    run's own inputs; ``load_artifacts`` reading the result back; a second
-    run with seeded ``_feats.npz`` files and ``--extract-features`` fills
-    exactly those rows. At least 10,000 nodes; no kernel launched.
-18. ``hp-tuning --train-name pmgt`` with config/hpo/hpo_pmgt_params.yaml and
-    a copy of config/hpo/train_pmgt_params.json (only ``data_dir``,
-    ``dataset_name``, ``log_dir`` and ``num_epochs`` = 1 changed) on phase
-    17's data: 2 trials, then the same study resumed to 3 (exactly one
-    more). Per trial, counts zeroed just before and read just after: its
-    params, epoch time and objective; FINISHED; the objective equal to
-    its logged ``val/auc`` within 1e-6; K2 = L a step and K1 = L a step +
-    L an evaluation chunk; ``torch.cuda.memory_allocated()`` after
-    ``gc.collect()`` back within 16 MB of its value before the first
-    trial.
-19. ``hp-tuning --train-name ncf --enable-trial-pruning`` with
-    config/hpo/hpo_ncf_neumf_pmgt_params.yaml (NeuMF-PMGT, ``prune: true``
-    arms), its ``node_feat*_{32,64,128}dim.npy`` statics rewritten to
-    ``train-pmgt --mode inference`` exports of phase 17's data at hidden
-    32, 64 and 128 (each trained one short epoch first): 2 COMPLETE trials,
-    every trial that drew a prune arm PRUNED and no other, ``should_prune``
-    asked once an epoch and never True (the built-in study), each COMPLETE
-    objective equal to its logged ``val/n20``.
+    (CUDA events). Then, in the same two gloo ranks,
+    hp-tuning studies through ``hpo.run_study`` (the function the
+    command's own launch runs in each rank; rank 0 owns the study and
+    broadcasts each trial), on phase 17's data: PMGT with the published
+    space drawing at full width (hidden 128, 3–5 layers, bf16, batch 32;
+    one short epoch: valid 0.9, evaluation chunks of 1,024), 2 trials,
+    then resumed to 3; NeuMF-PMGT with phase 19's space and
+    ``--enable-trial-pruning``, 1 COMPLETE trial. Per trial,
+    counted inside each rank: FINISHED once, the objective equal to its
+    logged validation metric and to a 1-rank evaluation of the trial's
+    best checkpoint in this process (PMGT AUC within 1e-5; NCF n20 and r20
+    equal), a 1-rank re-run of its training within 2e-3 (the ranks train
+    like one only to rounding, see ``check_study``), K1/K2 per
+    rank as predicted (PMGT: L a step, K1 also L an evaluation chunk;
+    NCF: none), ``should_prune`` asked once an epoch on both ranks
+    exactly when pruning is on, and the card's allocated bytes after
+    ``gc.collect()`` within 16 MB of that rank's level before the
+    studies. ``--multi-card`` runs the ``hp-tuning`` command itself (its
+    parser and launch) with the PMGT study at 2 and 4 NCCL ranks, a card
+    each, on its TG-shape data, with the same checks.
 K1 and K2 are also checked (phases 2 and 5) at the PMGT search space's
 shapes: bf16, S = 6, N = 384, keep masks, at d = 64 and at d = 32 with β =
 0, 0.25 and 1; at β = 0 K2's dc must be exactly 0 on both sides.
@@ -262,6 +296,11 @@ def read_launches() -> dict:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def clock(after: str) -> None:
+    """The script's elapsed seconds after a phase."""
+    emit({"phase": "clock", "after": after, "s": time.perf_counter() - T_START})
 
 
 def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
@@ -2063,7 +2102,7 @@ def run_published_pmgt_ncf(art_cut, data_dir: str, root: str) -> dict:
 
 
 # ----------------------------------------------------------------------
-# 16b. data parallelism: one NCCL rank, and two gloo ranks sharing the card
+# 21. data parallelism: one NCCL rank, and two gloo ranks sharing the card
 # ----------------------------------------------------------------------
 
 MR_PMGT_JOBS = (("replicated", {}),
@@ -2152,12 +2191,20 @@ def _mr_downstream(data_dir: str, module: str, model_name: str, extra: dict) -> 
             "metrics": metrics, "top": top}
 
 
-def multi_rank_work(pmgt_data: str, cut_data: str, jobs, downstream) -> dict:
+def multi_rank_work(pmgt_data: str, cut_data: str, jobs, downstream, studies=()) -> dict:
     """The multi_rank phase's work in one rank (or, without a group, in
-    this process): the PMGT jobs, then the downstream jobs."""
+    this process): the PMGT jobs, then the downstream jobs, then each
+    hp-tuning study of ``studies`` ((name, [``StudySpec``, ...]): the
+    specs run one after the other, a resume after a first run) through
+    ``hpo.run_study`` inside the group, with the card's allocated bytes
+    before the first study and the launch counts zeroed just before and
+    read just after the studies."""
     sys.path.insert(0, HERE)
+    import gc
+
     import torch
 
+    from pmgt_tpu_torch.cli import hpo
     from pmgt_tpu_torch.core import mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2175,6 +2222,16 @@ def multi_rank_work(pmgt_data: str, cut_data: str, jobs, downstream) -> dict:
         out[name] = _mr_downstream(cut_data, module, model_name, extra)
         out[name]["job_s"] = time.perf_counter() - t
     mesh.enable_timing(False)
+    if studies:
+        gc.collect()
+        torch.cuda.synchronize()
+        out["memory_base"] = torch.cuda.memory_allocated()
+        zero_launches()
+        for name, specs in studies:
+            t = time.perf_counter()
+            out[name] = [hpo.run_study(spec) for spec in specs]
+            out[f"{name}_s"] = time.perf_counter() - t
+        out["study_launches"] = read_launches()
     return out
 
 
@@ -2217,8 +2274,8 @@ def _mr_served_close(ref: dict, got: dict) -> dict:
             "same_minus_inf": bool((np.isneginf(sa) == np.isneginf(sb)).all())}
 
 
-def run_multi_rank(pmgt_data: str, cut_data: str, log_root: str) -> dict:
-    """Phase 16b: data parallelism. (a) One NCCL rank on the card, this
+def run_multi_rank(pmgt_data: str, cut_data: str, log_root: str, studies=()) -> dict:
+    """Phase 21: data parallelism. (a) One NCCL rank on the card, this
     process joined through the multi-host trio's path: the sharded PMGT
     job, then one epoch of ``run_training`` with the trio (every
     collective of the port, on NCCL). (b) Two gloo ranks sharing the card,
@@ -2227,7 +2284,11 @@ def run_multi_rank(pmgt_data: str, cut_data: str, log_root: str) -> dict:
     --shard-graph-tables``; (c) in the same ranks NCF, DCN and PMGT_NCF
     (the shard flags for PMGT_NCF) on the 1,024-user cut. Each against a
     1-rank run of the same configuration: the replicated and downstream
-    jobs in this process, the sharded job on the NCCL rank."""
+    jobs in this process, the sharded job on the NCCL rank. (d) In the
+    same gloo ranks, after the jobs, the hp-tuning ``studies`` ((name,
+    [StudySpec, ...], the dataset's nodes)) through ``hpo.run_study``,
+    each held by ``check_study`` against 1-rank re-runs in this
+    process."""
     import shutil
 
     from pmgt_tpu_torch.cli.main import run_training
@@ -2254,8 +2315,9 @@ def run_multi_rank(pmgt_data: str, cut_data: str, log_root: str) -> dict:
     nccl_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     gloo = mesh.launch(multi_rank_work, 2, (pmgt_data, cut_data, MR_PMGT_JOBS,
-                                            MR_DOWNSTREAM_JOBS),
-                       device="cuda", backend="gloo", timeout_s=400, run_timeout_s=400)
+                                            MR_DOWNSTREAM_JOBS,
+                                            [(name, specs) for name, specs, _ in studies]),
+                       device="cuda", backend="gloo", timeout_s=400, run_timeout_s=700)
     gloo_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     ref = multi_rank_work(pmgt_data, cut_data, MR_PMGT_JOBS[:1], MR_DOWNSTREAM_JOBS)
@@ -2310,6 +2372,15 @@ def run_multi_rank(pmgt_data: str, cut_data: str, log_root: str) -> dict:
                       "reference": row(ref, name), "checks": checks,
                       "metrics": [g[name]["metrics"] for g in gloo],
                       "reference_metrics": r0["metrics"], "ok": good})
+    t0 = time.perf_counter()
+    study_results = {}
+    for name, specs, num_nodes in studies:
+        res = check_study("multi_rank_study", name, specs[-1], [g[name] for g in gloo],
+                          os.path.join(log_root, "rerun"), num_nodes,
+                          [g["memory_base"] for g in gloo])
+        study_results[name] = res
+        ok &= res["ok"]
+    study_check_s = time.perf_counter() - t0
     eng = nccl["engine"]
     (eng_run,) = RunRegistry(args.log_dir).list_runs()
     eng["run_status"] = eng_run.status
@@ -2322,7 +2393,10 @@ def run_multi_rank(pmgt_data: str, cut_data: str, log_root: str) -> dict:
     for line in lines:
         emit(line)
     summary = {"phase": "multi_rank", "nccl_one_rank_s": nccl_s, "gloo_launch_s": gloo_s,
-               "reference_s": ref_s, "ok": bool(ok)}
+               "reference_s": ref_s, "study_reruns_s": study_check_s,
+               "studies_s_per_rank": {name: [g[f"{name}_s"] for g in gloo]
+                                      for name, _, _ in studies},
+               "ok": bool(ok)}
     emit(summary)
     if not ok:
         raise RuntimeError("the multi-rank runs disagree with the 1-rank runs or launched no kernel")
@@ -2330,8 +2404,12 @@ def run_multi_rank(pmgt_data: str, cut_data: str, log_root: str) -> dict:
                     "eval_export_launches", g[j].get("eval_serve_launches"))[k]
                     for g in gloo for j in ("replicated", "sharded", "pmgt_ncf"))
                 + nccl["sharded"]["train_launches"][k] + nccl["sharded"]["eval_export_launches"][k]
-                + eng["launches"][k] for k in ("k1", "k2")}
-    return {"lines": lines, "summary": summary, "launches": launches}
+                + eng["launches"][k]
+                + sum(g["study_launches"][k] for g in gloo if "study_launches" in g)
+                + sum(t.get("rerun_launches", {}).get(k, 0) for r in study_results.values()
+                      for t in r["trials"])
+                for k in ("k1", "k2")}
+    return {"lines": lines, "summary": summary, "launches": launches, "studies": study_results}
 
 
 def torch_equal(a: dict, b: dict) -> bool:
@@ -2342,9 +2420,9 @@ def torch_equal(a: dict, b: dict) -> bool:
 
 def run_multi_card(root: str) -> dict:
     """``--multi-card`` (on a host with more than one card): the PMGT jobs
-    of phase 16b (full-width train-pmgt, replicated and with both shard
+    of phase 21 (full-width train-pmgt, replicated and with both shard
     flags) at 2 and 4 NCCL ranks, one card each, against one rank in this
-    process, with phase 16b's bounds."""
+    process, with phase 21's bounds."""
     import shutil
 
     import torch
@@ -2399,10 +2477,13 @@ def multi_card_main() -> int:
     from pmgt_tpu_torch.ops import build
 
     build.build_all()
-    out = run_multi_card(os.path.join(HERE, "outputs", "chip_smoke_multi_card"))
+    root = os.path.join(HERE, "outputs", "chip_smoke_multi_card")
+    out = run_multi_card(root)
+    studies = run_multi_card_studies(root)
     emit({"phase": "multi_card", "cards": smi, **{k: v for k, v in out.items()
-                                                  if k.endswith("_s") or k == "ok"}})
-    return 0 if out["ok"] else 1
+                                                  if k.endswith("_s") or k == "ok"},
+          **{k: v for k, v in studies.items() if k.endswith("_s")}})
+    return 0 if out["ok"] and studies["ok"] else 1
 
 
 def run_options(data_dir: str, root: str) -> dict:
@@ -2691,48 +2772,27 @@ def run_preprocess(root: str, dump: dict, min_nodes: int = 10_000) -> dict:
     return {"row": row, "data_dir": out, "art": art}
 
 
-def watch_trials(records: list, base: dict):
-    """Wrap ``cli.hpo._objective`` (each trial of ``hp-tuning``): the
-    counts zeroed just before and read just after each trial, its wall
-    time, its outcome, and ``torch.cuda.memory_allocated()`` after
-    ``gc.collect()`` (``base["memory"]``: before the first trial). Returns
-    the function that restores the original."""
+def tune(argv) -> list:
+    """``hp-tuning`` with ``argv`` as the command runs it (its parser,
+    ``hpo.study_spec`` and ``hpo.launch_study``): each rank's ``run_study``
+    result, whose trial records carry the state, value, seconds, kernel
+    launches (read inside the rank before and after each trial), pruning
+    answers and the card's allocated bytes after ``gc.collect()``."""
+    from pmgt_tpu_torch.cli import hpo
+    from pmgt_tpu_torch.cli.main import build_parser
+
+    return hpo.launch_study(hpo.study_spec(build_parser().parse_args(argv)))
+
+
+def allocated() -> int:
+    """The card's allocated bytes after a garbage collection."""
     import gc
 
     import torch
 
-    from pmgt_tpu_torch.cli import hpo
-
-    real = hpo._objective
-
-    def watched(trial, *args, **kwargs):
-        gc.collect()
-        torch.cuda.synchronize()
-        base.setdefault("memory", torch.cuda.memory_allocated())
-        zero_launches()
-        rec = {"number": trial.number}
-        t = time.perf_counter()
-        try:
-            rec["objective"] = real(trial, *args, **kwargs)
-            rec["state"] = "COMPLETE"
-            return rec["objective"]
-        except hpo.TrialPruned:
-            rec["state"] = "PRUNED"
-            raise
-        finally:
-            torch.cuda.synchronize()
-            rec.update(wall_s=time.perf_counter() - t, launches=read_launches(),
-                       params=dict(trial.params))
-            gc.collect()
-            rec["memory_allocated"] = torch.cuda.memory_allocated()
-            records.append(rec)
-
-    hpo._objective = watched
-
-    def restore():
-        hpo._objective = real
-
-    return restore
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
 
 
 def trial_runs(log_dir: str) -> dict:
@@ -2754,8 +2814,10 @@ def trial_runs(log_dir: str) -> dict:
 def run_hpo_pmgt(data_dir: str, root: str, art) -> dict:
     """``hp-tuning --train-name pmgt`` with config/hpo/hpo_pmgt_params.yaml
     and a copy of config/hpo/train_pmgt_params.json that changes only
-    ``data_dir``, ``dataset_name``, ``log_dir`` and ``num_epochs`` (1): 1
-    trials, then the same study resumed to 3 (exactly one more trial). Per
+    ``data_dir``, ``dataset_name`` and ``log_dir`` and cuts a trial to
+    ``STUDY_TRAIN``'s one short epoch: 2 trials, then the same study
+    resumed to 3 (exactly one more trial), through ``tune`` (the command's
+    parser and launch; the trial records are the port's). Per
     trial: FINISHED, its objective equal to its logged ``val/auc`` within
     1e-6 (1 epoch: the best), K2 = L a step and K1 = L a step + L an
     evaluation chunk (the epoch's validation and the HPO test, which
@@ -2763,14 +2825,12 @@ def run_hpo_pmgt(data_dir: str, root: str, art) -> dict:
     within 16 MB of its value before the first trial."""
     import shutil
 
-    from pmgt_tpu_torch.cli.main import main as cli_main
-
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     with open(os.path.join(HERE, "config", "hpo", "train_pmgt_params.json")) as f:
         cfg = json.load(f)
     log_dir = os.path.join(root, "logs")
-    cfg.update(data_dir=data_dir, dataset_name=REVIEWS, log_dir=log_dir, num_epochs=1)
+    cfg.update(data_dir=data_dir, dataset_name=REVIEWS, log_dir=log_dir, **STUDY_TRAIN)
     train_path = os.path.join(root, "train_pmgt_params.json")
     with open(train_path, "w") as f:
         json.dump(cfg, f, indent=2)
@@ -2778,15 +2838,14 @@ def run_hpo_pmgt(data_dir: str, root: str, art) -> dict:
             os.path.join(HERE, "config", "hpo", "hpo_pmgt_params.yaml"),
             "--train-config-path", train_path, "--train-name", "pmgt",
             "--study-name", "pmgt-study", "--storage-path", os.path.join(root, "hpo", "db")]
-    records, base = [], {}
-    restore = watch_trials(records, base)
-    try:
-        t = time.perf_counter()
-        cli_main([*argv, "--n-trials", "2"])
-        first_s, first = time.perf_counter() - t, len(records)
-        cli_main([*argv, "--n-trials", "3"])
-    finally:
-        restore()
+    base = {"memory": allocated()}
+    zero_launches()
+    t = time.perf_counter()
+    (first_run,) = tune([*argv, "--n-trials", "2"])
+    first_s, first = time.perf_counter() - t, len(first_run["trials"])
+    (second_run,) = tune([*argv, "--n-trials", "3"])
+    total = read_launches()
+    records = first_run["trials"] + second_run["trials"]
     with open(os.path.join(root, "hpo", "pmgt-study_trials.json")) as f:
         stored = json.load(f)
 
@@ -2802,7 +2861,10 @@ def run_hpo_pmgt(data_dir: str, root: str, art) -> dict:
         want = {**none, "k1": layers * (steps + 2 * chunks), "k2": layers * steps}
         auc = metrics.get("val/auc", [])
         trial = {
-            "phase": "hpo_pmgt_trial", **rec, "run_status": run.status,
+            "phase": "hpo_pmgt_trial", "number": rec["number"], "state": rec["state"],
+            "objective": rec["value"], "wall_s": rec["seconds"], "launches": rec["launches"],
+            "params": rec["params"], "memory_allocated": rec["memory_allocated"],
+            "run_status": run.status,
             "hidden_size": run.params["hidden_size"], "num_hidden_layers": layers,
             "beta": run.params["beta"], "lr": run.params["lr"],
             "mask_node_ratio": run.params["mask_node_ratio"],
@@ -2813,7 +2875,7 @@ def run_hpo_pmgt(data_dir: str, root: str, art) -> dict:
         trial["checks"] = {
             "finished": run.status == "FINISHED" and rec["state"] == "COMPLETE",
             "objective_is_logged_val_auc": len(auc) == 1
-            and abs(rec["objective"] - auc[0]) <= 1e-6,
+            and abs(rec["value"] - auc[0]) <= 1e-6,
             "launches": rec["launches"] == want,
             "memory_within_16MB": abs(trial["memory_over_base_bytes"]) <= 16 << 20,
             "tagged": tags.get("study_name") == "pmgt-study",
@@ -2826,11 +2888,13 @@ def run_hpo_pmgt(data_dir: str, root: str, art) -> dict:
         "resume_adds_one": first == 2 and len(records) == 3
         and [t["number"] for t in stored] == [0, 1, 2]
         and all(t["state"] == "COMPLETE" for t in stored),
-        "stored_objectives": [t["value"] for t in stored] == [r["objective"] for r in records],
+        "stored_objectives": [t["value"] for t in stored] == [r["value"] for r in records],
+        "launches_are_the_trials": total == {k: sum(r["launches"][k] for r in records)
+                                              for k in none},
     }
     row = {"phase": "hpo_pmgt", "steps_per_epoch": steps, "eval_chunks": chunks,
            "first_two_trials_s": first_s, "memory_base_bytes": base["memory"],
-           "launches": {k: sum(r["launches"][k] for r in records) for k in none},
+           "launches": total,
            "checks": checks, "ok": all(checks.values())}
     emit(row)
     if not row["ok"]:
@@ -2843,8 +2907,9 @@ def run_hpo_ncf(data_dir: str, root: str, art) -> dict:
     config/hpo/hpo_ncf_neumf_pmgt_params.yaml (NeuMF-PMGT, with ``prune:
     true`` arms) and a copy of config/hpo/train_ncf_neumf_pmgt_params.json
     (``data_dir``, ``dataset_name``, ``log_dir``, ``num_epochs`` 1, and its
-    ``item_init_emb_path``); the space's three ``node_feat*_{32,64,128}
-    dim.npy`` statics rewritten to exports of the preprocessed dataset made
+    ``item_init_emb_path``); the space's batch pinned to its largest
+    choice, 256 (a draw of 32 takes ~2,800 steps), and its three
+    ``node_feat*_{32,64,128}dim.npy`` statics rewritten to exports of the preprocessed dataset made
     here by ``train-pmgt`` (hidden 32, 64, 128; 2 layers; one short epoch)
     and ``--mode inference``, so the ``classes.npz`` node-to-item remap runs
     on the card. 2 trials: 2 COMPLETE in the trials JSON, every trial that
@@ -2854,7 +2919,6 @@ def run_hpo_ncf(data_dir: str, root: str, art) -> dict:
     import shutil
 
     from pmgt_tpu_torch.cli import hpo
-    from pmgt_tpu_torch.cli.main import main as cli_main
     from pmgt_tpu_torch.data.artifacts import load_node_init_emb
     from pmgt_tpu_torch.train.registry import RunRegistry
 
@@ -2884,6 +2948,10 @@ def run_hpo_ncf(data_dir: str, root: str, art) -> dict:
     for h, name in ((32, "node_feat4_32dim"), (64, "node_feat6_64dim"),
                     (128, "node_feat5_128dim")):
         space = space.replace(f"./data/VG/{name}.npy", exports[h])
+    batch = "train_batch_size:\n  type: categorical\n  value: [32, 64, 128, 256]"
+    if space.count(batch) != 1:
+        raise RuntimeError("the published NeuMF-PMGT space changed")
+    space = space.replace(batch, batch.replace("[32, 64, 128, 256]", "[256]"))
     space_path = os.path.join(root, "hpo_ncf_neumf_pmgt_params.yaml")
     with open(space_path, "w") as f:
         f.write(space)
@@ -2896,41 +2964,16 @@ def run_hpo_ncf(data_dir: str, root: str, art) -> dict:
     with open(train_path, "w") as f:
         json.dump(cfg, f, indent=2)
 
-    asked = []
-    real_should_prune = hpo.RandomTrial.should_prune
-
-    def should_prune(self):
-        asked.append(real_should_prune(self))
-        return asked[-1]
-
-    records, base = [], {}
-    restore = watch_trials(records, base)
-    hpo.RandomTrial.should_prune = should_prune
-    try:
-        cli_main(["--device", "cuda", "hp-tuning", "--hp-config-path", space_path,
-                  "--train-config-path",
-                  train_path, "--train-name", "ncf", "--study-name", "ncf-pmgt-study",
-                  "--storage-path", os.path.join(root, "hpo", "db"), "--n-trials", "2",
-                  "--enable-trial-pruning"])
-    finally:
-        restore()
-        hpo.RandomTrial.should_prune = real_should_prune
+    base = allocated()
+    (study,) = tune(["--device", "cuda", "hp-tuning", "--hp-config-path", space_path,
+                     "--train-config-path", train_path, "--train-name", "ncf",
+                     "--study-name", "ncf-pmgt-study", "--storage-path",
+                     os.path.join(root, "hpo", "db"), "--n-trials", "2",
+                     "--enable-trial-pruning"])
+    records = study["trials"]
+    complete = [r for r in records if r["state"] == "COMPLETE"]
     with open(os.path.join(root, "hpo", "ncf-pmgt-study_trials.json")) as f:
         stored = json.load(f)
-
-    class Replay:
-        """The recorded draws of a trial, replayed through the space."""
-
-        def __init__(self, params):
-            self.params = params
-
-        def suggest_categorical(self, name, choices):
-            return self.params[name]
-
-        def suggest_float(self, name, *args, **kwargs):
-            return self.params[name]
-
-        suggest_int = suggest_float
 
     parsed = hpo._load_space(space_path)
     runs = trial_runs(log_dir)
@@ -2943,7 +2986,8 @@ def run_hpo_ncf(data_dir: str, root: str, art) -> dict:
             arm = True
         prune_ok.append(arm == (rec["state"] == "PRUNED"))
         watched = next(r for r in records if r["number"] == rec["number"])
-        trial = {"phase": "hpo_ncf_trial", **watched, "prune_arm": arm}
+        trial = {"phase": "hpo_ncf_trial", **{k: v for k, v in watched.items() if k != "results"},
+                 "prune_arm": arm}
         if rec["state"] == "COMPLETE":
             run, metrics, _ = runs[rec["number"]]
             n20 = metrics.get("val/n20", [])
@@ -2963,20 +3007,433 @@ def run_hpo_ncf(data_dir: str, root: str, art) -> dict:
                        for h, r in remap.items()),
         "two_complete": n_complete == 2,
         "pruned_arms_recorded_as_pruned": all(prune_ok),
-        "should_prune_asked_each_epoch_never_true": len(asked) == n_complete
-        and not any(asked),
+        "should_prune_asked_each_epoch_never_true": len(complete) == n_complete
+        and all(r["pruning_answers"] == [False] for r in complete),
         "objective_is_logged_val_n20": len(objective_ok) == 2 and all(objective_ok),
-        "no_kernel_in_ncf_trials": not any(v for r in records for v in r["launches"].values()),
+        "no_kernel_in_ncf_trials": not any(v for r in complete for v in r["launches"].values()),
     }
     row = {"phase": "hpo_ncf", "exports": remap, "export_invocations": invocations,
            "trials_json_states": [r["state"] for r in stored],
-           "should_prune_answers": asked, "memory_base_bytes": base["memory"],
-           "memory_over_base_bytes": [r["memory_allocated"] - base["memory"] for r in records],
+           "should_prune_answers": [r["pruning_answers"] for r in complete],
+           "memory_base_bytes": base,
+           "memory_over_base_bytes": [r["memory_allocated"] - base for r in complete],
            "checks": checks, "ok": all(checks.values())}
     emit(row)
     if not row["ok"]:
         raise RuntimeError(f"hp-tuning (NCF) failed: {checks}")
-    return {"row": row, "trials": trials}
+    return {"row": row, "trials": trials, "space_path": space_path, "cfg": cfg}
+
+
+# ---- hp-tuning studies over several ranks -------------------------------------
+
+# A study's trials: one short epoch (valid 0.9: 1,200 of the 12,000 nodes
+# train, 37 steps of 32) and evaluation chunks of 1,024 (11 chunks).
+STUDY_TRAIN = {"num_epochs": 1, "valid_size": 0.9, "test_batch_size": 1024}
+
+
+def write_study_space(path: str) -> str:
+    """config/hpo/hpo_pmgt_params.yaml drawing at full width: hidden 128
+    (intermediate 128 by its own arm) and 3–5 layers; lr, β and the mask
+    ratio as published."""
+    with open(os.path.join(HERE, "config", "hpo", "hpo_pmgt_params.yaml")) as f:
+        text = f.read()
+    for old, new in (("value: [32, 64, 128]", "value: [128]"), ("value: [2, 5]", "value: [3, 5]")):
+        if text.count(old) != 1:
+            raise RuntimeError(f"the published PMGT space changed: {old!r}")
+        text = text.replace(old, new)
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def pmgt_study_config(data_dir: str, dataset: str, log_dir: str, **extra) -> dict:
+    """config/hpo/train_pmgt_params.json (bf16, batch 32) on ``dataset``,
+    cut to ``STUDY_TRAIN``."""
+    with open(os.path.join(HERE, "config", "hpo", "train_pmgt_params.json")) as f:
+        cfg = json.load(f)
+    cfg.update(data_dir=data_dir, dataset_name=dataset, log_dir=log_dir, **STUDY_TRAIN, **extra)
+    return cfg
+
+
+def make_study_spec(train_name: str, cfg: dict, space_path: str, n_trials: int, name: str,
+                    storage_dir: str, pruning: bool = False):
+    """The ``hpo.StudySpec`` the ``hp-tuning`` command would build."""
+    from pmgt_tpu_torch.cli import hpo
+
+    cfg = {**cfg, "tags": list(cfg.get("tags", [])) + [["study_name", name]]}
+    os.makedirs(storage_dir, exist_ok=True)
+    return hpo.StudySpec(train_name, cfg, hpo._load_space(space_path), n_trials, name,
+                         os.path.join(storage_dir, "db"), pruning, "cuda")
+
+
+def pmgt_trial_launches(num_nodes: int, cfg: dict, layers: int) -> dict:
+    """K1 / K2 of one PMGT trial on each rank: L a step; K1 also L an
+    evaluation chunk, over the epoch's validation and the HPO test (both
+    on the validation split)."""
+    n_valid = math.ceil(cfg["valid_size"] * num_nodes)
+    steps = (num_nodes - n_valid) // cfg["train_batch_size"]
+    chunks = math.ceil(n_valid / cfg["test_batch_size"])
+    return {"k1": layers * (steps + 2 * chunks), "k2": layers * steps, "k3": 0, "k4": 0}
+
+
+class Replay:
+    """A trial's recorded draws, replayed through the space."""
+
+    def __init__(self, params):
+        self.params = params
+
+    def suggest_categorical(self, name, choices):
+        return self.params[name]
+
+    def suggest_float(self, name, *args, **kwargs):
+        return self.params[name]
+
+    suggest_int = suggest_float
+
+
+def rerun_one_rank(train_name: str, spec, params: dict, log_dir: str, **extra) -> dict:
+    """A trial's recorded parameters as a 1-rank trial in this process
+    (``extra``: ``mode="eval"`` and the trial's ``run_id`` evaluate its
+    best checkpoint instead): its test results, launches and wall time."""
+    from pmgt_tpu_torch.cli import hpo
+    from pmgt_tpu_torch.cli.main import train_args, train_model
+
+    raw = {**spec.train_params, **hpo.get_hp_params(Replay(params), spec.hp_params),
+           "num_devices": 1, "log_dir": log_dir, **extra}
+    zero_launches()
+    results, ms = timed(lambda: train_model(train_name, train_args(raw), device="cuda",
+                                            is_hptuning=True))
+    return {"results": results, "launches": read_launches(), "s": ms / 1e3}
+
+
+def check_study(phase: str, name: str, spec, ranks: list, rerun_root: str, num_nodes: int,
+                memory_base=None) -> dict:
+    """A study that ran on several ranks. ``ranks``: each rank's list of
+    ``run_study`` results (a first run, then its resumes). Checks: every
+    rank trained the trials rank 0's study stored, in order, with equal
+    test results; each COMPLETE trial a FINISHED run, once, its objective
+    its logged ``val/<criterion>`` (1e-6), a 1-rank evaluation of its own
+    best checkpoint in this process (PMGT AUC within 1e-5; NCF n20 and r20
+    equal), and a 1-rank re-run of its training here within 2e-3 of AUC
+    (PMGT) or of n20 and r20 (NCF). N ranks train like one only to
+    rounding: each rank's partial gradients are summed, in bf16 under the
+    PMGT policy (each rank rounds its weight gradients to bf16 first, as
+    XLA does on a mesh) and in another order in f32, and over an epoch
+    Adam amplifies the difference (measured on the H100, PERF.md §6: up
+    to 3.1e-4 of AUC, 2.5e-4 of r20); PRUNED trials
+    trained nowhere; per rank, PMGT K1/K2 launches as predicted (NCF:
+    none), pruning asked once an epoch on every rank exactly when pruning
+    is on, and the card's allocated bytes after each trial within 16 MB
+    of ``memory_base`` (that rank's level before the study; without it,
+    of the first trial's level in the same launch). One line a trial, then
+    the study's."""
+    with open(os.path.join(os.path.dirname(spec.storage_path),
+                           f"{spec.study_name}_trials.json")) as f:
+        stored = {t["number"]: t for t in json.load(f)}
+    from pmgt_tpu_torch.train.registry import RunRegistry
+
+    runs = trial_runs(spec.train_params["log_dir"])
+    counts = {}
+    for run in RunRegistry(spec.train_params["log_dir"]).list_runs():
+        with open(os.path.join(run.run_dir, "tags.json")) as f:
+            number = int(json.load(f)["trial"])
+        counts[number] = counts.get(number, 0) + 1
+    crit = spec.criterion.split("/")[1]
+    flat = [[t for r in runs_of_rank for t in r["trials"]] for runs_of_rank in ranks]
+    same_trials = all([(t["number"], t["params"], t["state"]) for t in f] ==
+                      [(t["number"], t["params"], t["state"]) for t in flat[0]] for f in flat)
+    lines, ok = [], same_trials and len(flat[0]) == len(stored)
+    for i, rec in enumerate(flat[0]):
+        per_rank = [f[i] for f in flat]
+        line = {"phase": f"{phase}_trial", "study": name, "number": rec["number"],
+                "state": rec["state"], "params": rec["params"]}
+        if rec["state"] == "PRUNED":
+            line["checks"] = {"stored_pruned": stored[rec["number"]]["state"] == "PRUNED",
+                              "trained_nowhere": all("seconds" not in r for r in per_rank)
+                              and rec["number"] not in runs}
+        else:
+            run, metrics, _ = runs[rec["number"]]
+            logged = metrics.get(f"val/{crit}", [])
+            ref = rerun_one_rank(spec.train_name, spec, rec["params"],
+                                 os.path.join(rerun_root, f"{name}_{rec['number']}"))
+            evald = rerun_one_rank(spec.train_name, spec, rec["params"],
+                                   spec.train_params["log_dir"], mode="eval", run_id=run.run_id)
+            if spec.train_name == "pmgt":
+                layers = int(rec["params"]["num_hidden_layers"])
+                want = pmgt_trial_launches(num_nodes, spec.train_params, layers)
+                keys = (spec.criterion,)
+                eval_ok = abs(rec["value"] - evald["results"][spec.criterion]) <= 1e-5
+            else:
+                want = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
+                keys = ("test/n20", "test/r20")
+                eval_ok = all(rec["results"][k] == evald["results"][k] for k in keys)
+            rerun_diff = max(abs(rec["results"][k] - ref["results"][k]) for k in keys)
+            levels = [r["memory_allocated"] - (memory_base[j] if memory_base else
+                                               flat[j][0]["memory_allocated"])
+                      for j, r in enumerate(per_rank)]
+            line.update(
+                objective=rec["value"], results=rec["results"], logged=logged,
+                one_rank_evaluation=evald["results"], rerun=ref["results"],
+                rerun_max_abs_diff=rerun_diff,
+                rerun_s=ref["s"], rerun_launches=ref["launches"], expected_launches=want,
+                epoch_s=metrics.get("epoch_time"),
+                ranks=[{"rank": j, "seconds": r["seconds"], "launches": r["launches"],
+                        "memory_over_level_bytes": levels[j],
+                        "pruning_answers": r["pruning_answers"]}
+                       for j, r in enumerate(per_rank)])
+            line["checks"] = {
+                "finished_once": run.status == "FINISHED" and counts[rec["number"]] == 1,
+                "stored": stored[rec["number"]]["state"] == "COMPLETE"
+                and stored[rec["number"]]["value"] == rec["value"],
+                "objective_is_logged": len(logged) == 1 and abs(rec["value"] - logged[0]) <= 1e-6,
+                "equals_one_rank_evaluation": eval_ok,
+                "one_rank_rerun_within_2e-3": rerun_diff <= 2e-3,
+                "same_results_on_every_rank": all(r["results"] == rec["results"]
+                                                  for r in per_rank),
+                "launches_per_rank": all(r["launches"] == want for r in per_rank)
+                and ref["launches"] == want,
+                "pruning_asked_each_epoch_on_every_rank": all(
+                    r["pruning_answers"] == ([False] * len(logged) if spec.enable_trial_pruning
+                                             else []) for r in per_rank),
+                "memory_back_within_16MB": all(abs(v) <= 16 << 20 for v in levels),
+            }
+        line["ok"] = all(line["checks"].values())
+        ok &= line["ok"]
+        emit(line)
+        lines.append(line)
+    row = {"phase": phase, "study": name, "ranks": len(ranks),
+           "runs": [len(r["trials"]) for r in ranks[0]],
+           "states": [t["state"] for t in flat[0]], "same_trials_on_every_rank": same_trials,
+           "ok": bool(ok)}
+    emit(row)
+    return {"row": row, "trials": lines, "ok": bool(ok)}
+
+
+def multi_rank_studies(data_dir: str, art, ncf_space: str, ncf_cfg: dict, root: str) -> list:
+    """The studies of the multi_rank phase's gloo ranks, on phase 17's
+    data: PMGT (``write_study_space``: hidden 128, 3–5 layers, bf16, batch
+    32; ``STUDY_TRAIN``'s short epoch), 2 trials, then the study resumed
+    to 3; NeuMF-PMGT (phase 19's space and train config) with pruning
+    enabled, 1 COMPLETE trial."""
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    space = write_study_space(os.path.join(root, "hpo_pmgt_params.yaml"))
+    cfg = pmgt_study_config(data_dir, REVIEWS, os.path.join(root, "pmgt_logs"))
+    pmgt = [make_study_spec("pmgt", cfg, space, n, "pmgt-mr-study", os.path.join(root, "pmgt_hpo"))
+            for n in (2, 3)]
+    ncf = [make_study_spec("ncf", {**ncf_cfg, "log_dir": os.path.join(root, "ncf_logs")},
+                           ncf_space, 1, "ncf-mr-study", os.path.join(root, "ncf_hpo"),
+                           pruning=True)]
+    return [("pmgt_study", pmgt, art.num_nodes), ("ncf_study", ncf, art.num_nodes)]
+
+
+def run_multi_card_studies(root: str) -> dict:
+    """``--multi-card``: the ``hp-tuning`` command (its parser and
+    ``hpo.launch_study``, the command's own spawn) with ``num_devices`` 2
+    and 4 in the train config, NCCL ranks a card each, on the TG-shape
+    data of ``run_multi_card``: the PMGT study of the multi_rank phase, 2
+    trials then a resume to 3, each trial checked by ``check_study``."""
+    import shutil
+
+    import torch
+
+    from pmgt_tpu_torch.cli import hpo
+    from pmgt_tpu_torch.cli.main import build_parser
+
+    art = _mr_artifacts(root, "TG")
+    space = write_study_space(os.path.join(root, "hpo_pmgt_params.yaml"))
+    out = {"ok": True}
+    for n in (2, 4):
+        if n > torch.cuda.device_count():
+            continue
+        sroot = os.path.join(root, f"study_nccl{n}")
+        shutil.rmtree(sroot, ignore_errors=True)
+        os.makedirs(sroot)
+        train = os.path.join(sroot, "train_pmgt_params.json")
+        with open(train, "w") as f:
+            json.dump(pmgt_study_config(root, "TG", os.path.join(sroot, "logs"), num_devices=n), f)
+        argv = ["--device", "cuda", "hp-tuning", "--hp-config-path", space,
+                "--train-config-path", train, "--train-name", "pmgt",
+                "--study-name", f"pmgt-nccl{n}", "--storage-path", os.path.join(sroot, "hpo", "db")]
+        runs, t = [], time.perf_counter()
+        for k in (2, 3):
+            ns = build_parser().parse_args([*argv, "--n-trials", str(k)])
+            runs.append(hpo.launch_study(hpo.study_spec(ns)))
+        out[f"nccl{n}_study_s"] = time.perf_counter() - t
+        res = check_study("multi_card_study", f"pmgt_nccl{n}", hpo.study_spec(ns),
+                          [[r[j] for r in runs] for j in range(n)],
+                          os.path.join(sroot, "rerun"), art.num_nodes)
+        out["ok"] &= res["ok"]
+    return out
+
+
+# ---- feature extraction at the published widths ---------------------------------
+
+FX_ITEMS = 300  # items with 1–3 images and 1–3 reviews each
+
+
+def standin_cnn():
+    """A seeded stand-in for Inception-v4's timm surface, 1,536 wide:
+    ``forward_features`` (conv 3→32, 8×8 stride 8, ReLU, 4×4 average pool,
+    1×1 conv to 1,536) and ``global_pool`` (mean over the map)."""
+    import torch
+
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            torch.manual_seed(0)
+            self.stem = torch.nn.Conv2d(3, 32, 8, stride=8)
+            self.head = torch.nn.Conv2d(32, 1536, 1)
+
+        def forward_features(self, x):
+            return self.head(torch.nn.functional.avg_pool2d(torch.relu(self.stem(x)), 4))
+
+        def global_pool(self, x):
+            return x.mean(dim=(2, 3))
+
+    return Net()
+
+
+def standin_text_model():
+    """(encoder, tokenizer): a seeded stand-in for BERT-base's surface,
+    768 wide. The tokenizer maps words to ids by CRC-32, adds [CLS] /
+    [SEP], truncates to ``max_length`` and pads to the batch's longest;
+    the encoder is an embedding, one 12-head masked self-attention layer
+    and a feed-forward layer, each with a residual and LayerNorm, and
+    returns ``last_hidden_state``."""
+    import types
+    import zlib
+
+    import torch
+
+    class Encoding(dict):
+        def to(self, device):
+            return Encoding({k: v.to(device) for k, v in self.items()})
+
+    def tokenizer(texts, padding=True, truncation=True, max_length=128, return_tensors="pt"):
+        ids = [[101] + [1000 + zlib.crc32(w.encode()) % 29000 for w in t.split()]
+               [: max_length - 2] + [102] for t in texts]
+        width = max(len(i) for i in ids)
+        input_ids = torch.zeros((len(ids), width), dtype=torch.long)
+        mask = torch.zeros((len(ids), width), dtype=torch.long)
+        for r, row in enumerate(ids):
+            input_ids[r, : len(row)] = torch.tensor(row)
+            mask[r, : len(row)] = 1
+        return Encoding(input_ids=input_ids, attention_mask=mask)
+
+    class Encoder(torch.nn.Module):
+        def __init__(self, width=768, heads=12):
+            super().__init__()
+            torch.manual_seed(1)
+            self.heads = heads
+            self.tok = torch.nn.Embedding(30522, width)
+            self.pos = torch.nn.Embedding(512, width)
+            self.qkv = torch.nn.Linear(width, 3 * width)
+            self.out = torch.nn.Linear(width, width)
+            self.ff = torch.nn.Sequential(torch.nn.Linear(width, 1024), torch.nn.GELU(),
+                                          torch.nn.Linear(1024, width))
+            self.ln1, self.ln2 = torch.nn.LayerNorm(width), torch.nn.LayerNorm(width)
+
+        def forward(self, input_ids, attention_mask):
+            b, n = input_ids.shape
+            x = self.tok(input_ids) + self.pos(torch.arange(n, device=input_ids.device))
+            q, k, v = (t.reshape(b, n, self.heads, -1).transpose(1, 2)
+                       for t in self.qkv(x).chunk(3, dim=-1))
+            scores = q @ k.transpose(-1, -2) / math.sqrt(q.shape[-1])
+            scores = scores.masked_fill(attention_mask[:, None, None, :] == 0, float("-inf"))
+            att = (scores.softmax(-1) @ v).transpose(1, 2).reshape(b, n, -1)
+            x = self.ln1(x + self.out(att))
+            return types.SimpleNamespace(last_hidden_state=self.ln2(x + self.ff(x)))
+
+    return Encoder(), tokenizer
+
+
+def run_feature_extraction(root: str) -> dict:
+    """The extractors on the card at Inception-v4's and BERT-base's output
+    widths, with stand-in models (the card machine has no timm,
+    transformers or PIL): ``FX_ITEMS`` items of 1–3 seeded 3×299×299
+    arrays through ``extract_visual_features`` (a numpy transform) and of
+    1–3 seeded reviews (5–160 words) through ``extract_textual_features``
+    (``max_length`` 128); every row against a CPU recomputation with the
+    same models (TF32 off), within 1e-4. The rows are written with
+    ``save_feats_npz`` and ``preprocess --extract-features`` on a seeded
+    dump over the same asins fills exactly those rows. Times per 1,000
+    images and per 1,000 reviews (host clock; each item's row is copied
+    to the host, so the clock waits for the card)."""
+    import shutil
+
+    import torch
+
+    from pmgt_tpu_torch.cli.main import main as cli_main
+    from pmgt_tpu_torch.data import feature_extraction as fx
+
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(0)
+    asins = [f"B{i:09d}" for i in range(FX_ITEMS)]
+    counts = rng.integers(1, 4, FX_ITEMS)
+    images = [(a, [rng.standard_normal((3, 299, 299), dtype=np.float32) for _ in range(c)])
+              for a, c in zip(asins, counts)]
+    words = [f"w{i}" for i in range(5000)]
+    texts = {a: [" ".join(rng.choice(words, rng.integers(5, 161)))
+                 for _ in range(rng.integers(1, 4))] for a in asins}
+    cnn, (encoder, tokenizer) = standin_cnn(), standin_text_model()
+
+    def transform(a):
+        return torch.from_numpy(a)
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        vis = fx.extract_visual_features(images, model=cnn, transform=transform, device=device)
+        visual_s = time.perf_counter() - t
+        t = time.perf_counter()
+        txt = fx.extract_textual_features(texts, model=encoder, tokenizer=tokenizer,
+                                          device=device)
+        out[device] = {"visual": vis, "textual": txt, "visual_s": visual_s,
+                       "textual_s": time.perf_counter() - t}
+    n_images, n_reviews = int(counts.sum()), sum(len(v) for v in texts.values())
+
+    def diff(m):
+        (a, ma), (b, mb) = out["cuda"][m], out["cpu"][m]
+        return float(np.abs(a - b).max()) if ma == mb == asins else float("inf")
+
+    # the drop-in files, consumed by preprocess on a dump over the same asins
+    data = os.path.join(root, "data")
+    os.makedirs(data)
+    for m in ("visual", "textual"):
+        fx.save_feats_npz(os.path.join(data, f"{REVIEWS}_{m}_feats.npz"), *out["cuda"][m])
+    write_review_dump(os.path.join(root, "raw"), items=FX_ITEMS, reviewers=6000,
+                      pre_reviews=40_000, post_reviews=3000, community=8)
+    art = cli_main(["preprocess", "--raw-dir", os.path.join(root, "raw"), "--out-dir", data,
+                    "--dataset-name", REVIEWS, "--extract-features"])
+    nodes = [str(a) for a in art.node_classes]
+    filled = all(
+        np.array_equal(table[2:], feats[[asins.index(a) for a in nodes]])
+        for table, (feats, _) in zip(art.feat_init_embs,
+                                     (out["cuda"]["visual"], out["cuda"]["textual"])))
+    checks = {
+        "visual_shape": out["cuda"]["visual"][0].shape == (FX_ITEMS, 1536),
+        "textual_shape": out["cuda"]["textual"][0].shape == (FX_ITEMS, 768),
+        "visual_rows_within_1e-4_of_cpu": diff("visual") <= 1e-4,
+        "textual_rows_within_1e-4_of_cpu": diff("textual") <= 1e-4,
+        "finite": all(np.isfinite(out["cuda"][m][0]).all() for m in ("visual", "textual")),
+        "preprocess_fills_the_extracted_rows": filled and len(nodes) > 0,
+    }
+    row = {"phase": "feature_extraction", "items": FX_ITEMS, "images": n_images,
+           "reviews": n_reviews, "nodes_filled": len(nodes),
+           "visual_max_abs_diff": diff("visual"), "textual_max_abs_diff": diff("textual"),
+           "visual_s_per_1000_images": out["cuda"]["visual_s"] / n_images * 1e3,
+           "textual_s_per_1000_reviews": out["cuda"]["textual_s"] / n_reviews * 1e3,
+           "cpu_visual_s_per_1000_images": out["cpu"]["visual_s"] / n_images * 1e3,
+           "cpu_textual_s_per_1000_reviews": out["cpu"]["textual_s"] / n_reviews * 1e3,
+           "checks": checks, "ok": all(checks.values())}
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"feature extraction failed: {checks}")
+    return row
 
 
 def main() -> int:
@@ -3010,6 +3467,7 @@ def main() -> int:
     build.build_all()
     emit({"phase": "build", "kernels": list(build.KERNELS),
           "seconds": time.perf_counter() - t0, "ptxas": ptxas_report()})
+    clock("build")
 
     # ---- 2. K1 against its plain version --------------------------------
     checks = [
@@ -3060,6 +3518,7 @@ def main() -> int:
                  for b, h, d in ((3072, 1, 128), (768, 1, 128), (37, 1, 128), (384, 2, 64))
                  for km in (False, True)]
     results.update(k3_checks=k3_checks, k4_checks=k4_checks)
+    clock("kernel_checks")
 
     # ---- 3. main path: evaluate + export at full width ------------------
     from pmgt_tpu_torch.core.config import TrainArgs
@@ -3124,6 +3583,7 @@ def main() -> int:
         raise RuntimeError("kernel path and plain path disagree")
 
     # ---- 6. the training path at full width ---------------------------
+    clock("serving")
     train = run_training(task)
 
     # ---- 7. kernel route against plain route in training ---------------
@@ -3139,7 +3599,9 @@ def main() -> int:
     public = run_public_op(attn_inputs)
 
     # ---- 10. train-pmgt end to end through the CLI ----------------------
+    clock("training")
     cli = run_cli(art, os.path.join(HERE, "outputs", "chip_smoke_cli"), smi)
+    clock("cli")
 
     # ---- 10b. train-pmgt with scripts/run_pmgt.sh's arguments (bf16) ------
     cli_data = os.path.join(HERE, "outputs", "chip_smoke_cli", "data")  # phase 10's data
@@ -3148,12 +3610,15 @@ def main() -> int:
 
     # ---- 11-15. the downstream recommenders --------------------------------
     emb_path = os.path.join(HERE, "outputs", "chip_smoke_cli", "emb.npy")  # phase 10's export
+    clock("published_pmgt")
     ncf = run_ncf(art, emb_path)
     art_cut = cut_users(art, PMGT_NCF_USERS)
     pncf = run_pmgt_ncf(art_cut)
     dcn = run_dcn(art_cut, emb_path)
     down_root = os.path.join(HERE, "outputs", "chip_smoke_downstream")
+    clock("ncf_pmgt_ncf_dcn")
     down_cli = run_downstream_cli(art_cut, down_root, emb_path, published["emb_path"])
+    clock("downstream_cli")
     # ---- 15b. train-pmgt-ncf with scripts/run_pmgt_ncf.sh's arguments (bf16)
     pub_ncf = run_published_pmgt_ncf(art_cut, os.path.join(down_root, "data"),
                                      os.path.join(HERE, "outputs", "chip_smoke_published_ncf"))
@@ -3168,18 +3633,32 @@ def main() -> int:
     # last profiler session, so it comes after the profiled passes)
     options = run_options(cli_data, os.path.join(HERE, "outputs", "chip_smoke_options"))
 
-    # ---- 16b. data parallelism: one NCCL rank; two gloo ranks sharing the
-    # card (train-pmgt replicated and sharded, NCF, DCN, PMGT_NCF)
-    multi = run_multi_rank(cli_data, os.path.join(down_root, "data"),
-                           os.path.join(HERE, "outputs", "chip_smoke_multi_rank"))
+    clock("options")
 
     # ---- 17-19. the data and tuning commands: preprocess a review dump,
     # then hp-tuning on it (PMGT trials on K1/K2; the NeuMF-PMGT search)
     pre = run_preprocess(os.path.join(HERE, "outputs", "chip_smoke_preprocess"), DUMP)
+    clock("preprocess")
     hpo_pmgt = run_hpo_pmgt(pre["data_dir"], os.path.join(HERE, "outputs", "chip_smoke_hpo_pmgt"),
                             pre["art"])
+    clock("hpo_pmgt")
     hpo_ncf = run_hpo_ncf(pre["data_dir"], os.path.join(HERE, "outputs", "chip_smoke_hpo_ncf"),
                           pre["art"])
+    clock("hpo_ncf")
+
+    # ---- 20. the feature extractors on the card (stand-in models)
+    fx_row = run_feature_extraction(os.path.join(HERE, "outputs", "chip_smoke_features"))
+    clock("feature_extraction")
+
+    # ---- 21. data parallelism: one NCCL rank; two gloo ranks sharing the
+    # card (train-pmgt replicated and sharded, NCF, DCN, PMGT_NCF, then
+    # hp-tuning studies on phase 17's data)
+    studies = multi_rank_studies(pre["data_dir"], pre["art"], hpo_ncf["space_path"],
+                                 hpo_ncf["cfg"],
+                                 os.path.join(HERE, "outputs", "chip_smoke_multi_rank_studies"))
+    multi = run_multi_rank(cli_data, os.path.join(down_root, "data"),
+                           os.path.join(HERE, "outputs", "chip_smoke_multi_rank"), studies)
+    clock("multi_rank")
 
     # ---- summary ---------------------------------------------------------
     # Each kernel at its main path's shape (K1/K2 the training lanes, K3/K4
@@ -3279,6 +3758,7 @@ def main() -> int:
                    published_pmgt=published["row"], published_pmgt_ncf=pub_ncf["row"],
                    options=options, downstream_profile=down_busy,
                    multi_rank=multi["lines"], multi_rank_summary=multi["summary"],
+                   multi_rank_studies=multi["studies"], feature_extraction=fx_row,
                    preprocess=pre["row"], hpo_pmgt=hpo_pmgt, hpo_ncf=hpo_ncf,
                    command_s=time.perf_counter() - T_START)
     emit({"phase": "command_time", "seconds": results["command_s"]})

@@ -18,7 +18,10 @@ ranking evaluation and full-catalogue top-k serving; and the public
 batch-major op ``ops.dual_attention_pallas``; every option of the
 published training scripts runs (the bf16 compute policy ``--mp-enabled``,
 bf16/int8 feature tables, per-step sampling, gradient checkpointing,
-relative positions), all but multi-GPU. The dual attention runs as
+relative positions), data-parallel over several cards
+(``core/mesh.py``), and so do ``hp-tuning`` (data-parallel trials),
+``preprocess`` (with the feature extractors) and ``scrape-images``. The
+dual attention runs as
 two hand-written CUDA kernels, the forward
 (``ops/csrc/dual_attention_fwd.cu``) and the backward
 (``ops/csrc/dual_attention_bwd.cu``), each in the seq-major and the

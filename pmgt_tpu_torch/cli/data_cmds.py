@@ -9,7 +9,8 @@ defaults:
 - ``scrape-images`` downloads the product images a metadata dump names
   (``data/ingest.py``).
 
-None of them touches the card."""
+Only ``preprocess --extract-features`` touches the card: its extractors
+run on ``--feature-device`` (default: the command's ``--device``)."""
 from __future__ import annotations
 
 import argparse
@@ -93,15 +94,19 @@ def add_preprocess(sub) -> None:
     a("--test-size", type=float, default=0.2)
     a("--seed", type=int, default=0)
     a("--extract-features", action=argparse.BooleanOptionalAction, default=False,
-      help="fill the feature tables from pre-extracted <out-dir>/<dataset-name>_"
-      "{visual,textual}_feats.npz (the Inception-v4/BERT extractors are not "
-      "ported: without the file a modality keeps random rows)")
+      help="fill the feature tables with extracted features: from <out-dir>/"
+      "<dataset-name>_{visual,textual}_feats.npz when present, else by the "
+      "extractors (which write those files); a modality whose model cannot be "
+      "had keeps random rows")
     a("--text-model", default="bert-base-uncased",
-      help="textual extractor's name (named in the fallback warning)")
+      help="textual extractor: a local transformers model directory (or a name in "
+      "the local Hugging Face cache; nothing is downloaded)")
     a("--image-model", default="inception_v4",
-      help="visual extractor's name (named in the fallback warning)")
-    a("--feature-device", default="cpu",
-      help="unused: the extractors are not ported (kept for compatibility)")
+      help="visual extractor: timm's pretrained model of this name (needs timm and "
+      "its weights)")
+    a("--feature-device", default=None,
+      help="device of the extractors (default: the command's --device, so the card; "
+      "the JAX command's default is the CPU)")
     a("--download", action="store_true",
       help="download the Amazon 5-core dump when reviews are absent")
     p.set_defaults(handler=preprocess)
@@ -122,6 +127,7 @@ def preprocess(ns: argparse.Namespace):
         extract_features=ns.extract_features,
         text_model=ns.text_model,
         image_model=ns.image_model,
+        feature_device=ns.feature_device or ns.device,
         download=ns.download,
     )
 

@@ -25,27 +25,50 @@ its objective is ``test/<early_criterion>`` as ``test`` returns it, which
 under HPO evaluates the validation split of the best checkpoint (the
 reference's leakage guard). Trials build their ``TrainArgs`` as the
 command line does (``cli.main.train_args``).
+
+Every trial is data-parallel over the train config's ``num_devices``
+ranks (unset: every visible card, one rank on the CPU), as the JAX
+package's trials are over its mesh. The whole study is one launch
+(``launch_study``; in this process for one rank). Rank 0 owns the study
+(its storage, trial numbers and history: the built-in study seeds itself
+from the clock, so ranks must not draw on their own), draws each trial's
+parameters and broadcasts them, or the verdict of a ``prune: true`` arm;
+every rank trains (``run_study``, which also runs inside a group a caller
+has already started). With ``--enable-trial-pruning`` each rank's task
+gets a ``RankTrial``: rank 0's ``should_prune`` is broadcast. The
+multi-host trio in a trial config, and a ``num_devices`` the space
+suggests, are refused. Each rank keeps a record of each trial: state,
+value, seconds, pruning answers, kernel launches and the card's allocated
+bytes after it.
 """
 from __future__ import annotations
 
 import argparse
 import copy
+import gc
 import json
 import logging
 import os
 import time
+from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from pmgt_tpu_torch.cli.main import (
     MULTI_HOST,
     _existing_path,
+    configure_logging,
     log_elapsed_time,
     train_args,
     train_model,
+    visible_devices,
 )
+from pmgt_tpu_torch.core import mesh as dist_mesh
+from pmgt_tpu_torch.core.mesh import broadcast_object, current_mesh
+from pmgt_tpu_torch.ops.dual_attention import launch_counts
 
 logger = logging.getLogger("pmgt_tpu_torch")
 
@@ -302,8 +325,100 @@ class RandomSearchStudy:
 
 
 # --------------------------------------------------------------------------
-# objective + command
+# the study over a data-parallel group: trials led by rank 0
 # --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class StudySpec:
+    """What every rank of a study needs: the search space, the trials'
+    train config, the study's settings and the device."""
+
+    train_name: str
+    train_params: Dict[str, Any]
+    hp_params: Dict[str, Any]
+    n_trials: int
+    study_name: str
+    storage_path: str
+    enable_trial_pruning: bool = False
+    device: str = "cuda"
+
+    @property
+    def criterion(self) -> str:
+        return "test/" + self.train_params.get("early_criterion", "loss")
+
+    @property
+    def direction(self) -> str:
+        return "minimize" if self.train_params.get("early_criterion") == "loss" else "maximize"
+
+
+def _check_world(params: Dict[str, Any], suggested: Dict[str, Any]) -> None:
+    """Refuse what would change a trial's group: the multi-host trio (a
+    study is one host's, as in the JAX package, which never joins hosts
+    for one) and a ``num_devices`` that the space suggests (the ranks are
+    fixed when the study is launched)."""
+    trio = sorted(k for k in MULTI_HOST if params.get(k) is not None)
+    if trio:
+        raise NotImplementedError(
+            f"hp-tuning runs on one host; the multi-host options {trio} are refused in a "
+            "trial config (set num_devices for data-parallel trials)")
+    if "num_devices" in suggested:
+        raise ValueError("a search space cannot suggest num_devices: a study's ranks are "
+                         "fixed at launch (set num_devices in the train config)")
+
+
+class RankTrial:
+    """A trial as one rank's task sees it. On rank 0 it wraps the study's
+    trial: ``report`` reports to it and ``should_prune`` broadcasts its
+    decision. On the other ranks ``report`` does nothing and
+    ``should_prune`` returns rank 0's decision. Every rank of a trial has
+    one exactly when pruning is enabled, so the engine asks on every rank
+    after the same epoch; ``answers`` lists the decisions."""
+
+    def __init__(self, mesh, trial=None):
+        self.mesh, self.trial = mesh, trial
+        self.answers: List[bool] = []
+
+    def report(self, value, step):
+        if self.trial is not None:
+            self.trial.report(value, step)
+
+    def should_prune(self) -> bool:
+        mine = bool(self.trial.should_prune()) if self.trial is not None else None
+        self.answers.append(bool(broadcast_object(self.mesh, mine)))
+        return self.answers[-1]
+
+
+def _allocated(device: str) -> Optional[int]:
+    """The card's allocated bytes after a garbage collection (None on the
+    CPU)."""
+    gc.collect()
+    if torch.device(device).type != "cuda":
+        return None
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _train_trial(msg: Dict[str, Any], train_name: str, criterion: str, pruning: bool,
+                 device: str, mesh, trial, records: list) -> float:
+    """Train rank 0's trial ``msg`` on this rank; its ``criterion`` is the
+    value. Appends this rank's record of it to ``records``: state, value,
+    test results, seconds, pruning answers, kernel launches, and the card's
+    allocated bytes after it."""
+    rank_trial = RankTrial(mesh, trial) if pruning else None
+    before = launch_counts()
+    t = time.perf_counter()
+    results = train_model(train_name, train_args(msg["params"]), device=device,
+                          is_hptuning=True, trial=rank_trial, enable_trial_pruning=pruning)
+    value = results.get(criterion, 0)
+    after = launch_counts()
+    records.append({
+        "number": msg["number"], "params": msg["suggested"], "state": "COMPLETE",
+        "value": float(value), "results": results, "seconds": time.perf_counter() - t,
+        "pruning_answers": rank_trial.answers if rank_trial else [],
+        "launches": {k: after[k] - before[k] for k in after},
+        "memory_allocated": _allocated(device)})
+    return value
+
 
 def _objective(
     trial,
@@ -313,27 +428,137 @@ def _objective(
     criterion: str,
     enable_trial_pruning: bool,
     device: str = "cuda",
+    records: Optional[list] = None,
 ) -> float:
-    params = copy.deepcopy(train_params)
-    params.update(get_hp_params(trial, hp_params))
-    several = {k: params[k] for k in ("num_devices", *MULTI_HOST)
-               if params.get(k) is not None and not (k == "num_devices" and params[k] == 1)}
-    if several:
-        raise NotImplementedError(
-            f"hp-tuning runs every trial on one device; {sorted(several)} (multi-host or "
-            "multi-GPU trials) wait for ROADMAP.md §1, hp-tuning over several devices")
+    """One trial, led by this process (rank 0 of its group, or alone):
+    the suggestions, broadcast to the other ranks with the trial's
+    parameters (or, when a ``prune: true`` arm raised ``TrialPruned``,
+    the verdict, and no rank trains), then the training on every rank.
+    Appends this rank's record of the trial to ``records``."""
+    mesh = current_mesh(device)
+    records = [] if records is None else records
+    try:
+        suggested = get_hp_params(trial, hp_params)
+    except TrialPruned:
+        msg = {"number": trial.number, "suggested": dict(trial.params), "pruned": True}
+        broadcast_object(mesh, msg)
+        _pruned(msg, records)
+        raise
+    params = {**copy.deepcopy(train_params), **suggested}
+    _check_world(params, suggested)
     tags = [tuple(t) for t in params.get("tags", [])]
     tags.append(("trial", str(trial.number)))
     params["tags"] = tags
-    results = train_model(
-        train_name,
-        train_args(params),
-        device=device,
-        is_hptuning=True,
-        trial=trial,
-        enable_trial_pruning=enable_trial_pruning,
-    )
-    return results.get(criterion, 0)
+    msg = broadcast_object(mesh, {"number": trial.number, "params": params,
+                                  "suggested": dict(trial.params)})
+    return _train_trial(msg, train_name, criterion, enable_trial_pruning, device, mesh, trial,
+                        records)
+
+
+def _pruned(msg: Dict[str, Any], records: list) -> None:
+    records.append({"number": msg["number"], "params": msg["suggested"], "state": "PRUNED",
+                    "value": None})
+
+
+def _follow(spec: StudySpec, mesh, records: list) -> None:
+    """A rank other than 0: train each trial rank 0 broadcasts until it
+    broadcasts the stop (None)."""
+    while True:
+        msg = broadcast_object(mesh, None)
+        if msg is None:
+            return
+        if msg.get("pruned"):
+            _pruned(msg, records)
+            continue
+        _train_trial(msg, spec.train_name, spec.criterion, spec.enable_trial_pruning,
+                     spec.device, mesh, None, records)
+
+
+def run_study(spec: StudySpec) -> Dict[str, Any]:
+    """The study inside this process's group (or alone): rank 0 owns the
+    study (the built-in one or Optuna's, its storage, its trial numbers
+    and history), draws each trial's parameters and broadcasts them;
+    every rank trains every trial. When rank 0's ``optimize`` returns
+    (trial target, attempt cap, ``study.stop()`` or ``KeyboardInterrupt``)
+    it broadcasts the stop. A trial that fails raises on its rank.
+    Returns ``{"best": the best trial (rank 0; None on the others),
+    "trials": this rank's trial records}``."""
+    mesh = current_mesh(spec.device)
+    records: List[Dict[str, Any]] = []
+    if not mesh.is_primary:
+        _follow(spec, mesh, records)
+        return {"best": None, "trials": records}
+
+    def objective(trial):
+        return _objective(trial, spec.train_params, spec.hp_params, spec.train_name,
+                          spec.criterion, spec.enable_trial_pruning, spec.device, records)
+
+    n_trials = spec.n_trials
+    if HAVE_OPTUNA:
+        study = optuna.create_study(
+            study_name=spec.study_name,
+            storage=f"sqlite:///{spec.storage_path}",
+            load_if_exists=True,
+            direction=spec.direction,
+        )
+
+        def max_trial_callback(study, trial):
+            states = (
+                optuna.trial.TrialState.COMPLETE,
+                optuna.trial.TrialState.RUNNING,
+            )
+            if len([t for t in study.trials if t.state in states]) >= n_trials:
+                study.stop()
+            # The built-in study's backstop: PRUNED trials count toward a
+            # hard total-attempt cap.
+            if len(study.trials) >= max(10 * n_trials, n_trials + 20):
+                logger.warning(
+                    "stopping after %d total trials: search space prunes "
+                    "too aggressively",
+                    len(study.trials),
+                )
+                study.stop()
+
+        try:
+            study.optimize(objective, callbacks=[max_trial_callback])
+        except KeyboardInterrupt:
+            logger.info("Stop tuning.")
+        broadcast_object(mesh, None)
+        best = study.best_trial
+        number, value, params = best.number, best.value, best.params
+    else:
+        logger.warning("optuna not installed — using built-in random search")
+        study = RandomSearchStudy(spec.storage_path, spec.study_name, spec.direction)
+        try:
+            study.optimize(objective, n_trials=n_trials)
+        except KeyboardInterrupt:
+            logger.info("Stop tuning.")
+        broadcast_object(mesh, None)
+        best = study.best_trial
+        number, value, params = best["number"], best["value"], best["params"]
+    logger.info("best_exp_num: %s", number)
+    logger.info("best_score: %s", value)
+    logger.info("best_params: %s", params)
+    return {"best": best, "trials": records}
+
+
+def _study_rank_main(spec: StudySpec) -> Dict[str, Any]:
+    configure_logging()
+    return run_study(spec)
+
+
+def launch_study(spec: StudySpec) -> List[Dict[str, Any]]:
+    """Run the study on ``num_devices`` ranks of the train config (unset:
+    every visible card, one rank on the CPU, as ``train-pmgt`` resolves
+    it): in this process for one rank, else in one launch of that many
+    processes for the whole study. Returns each rank's ``run_study``
+    result, in rank order."""
+    _check_world(spec.train_params, {})
+    n = spec.train_params.get("num_devices")
+    ranks = n if n is not None else visible_devices(spec.device)
+    if ranks == 1:
+        return [run_study(spec)]
+    return dist_mesh.launch(_study_rank_main, ranks, (spec,), device=spec.device)
 
 
 def _load_space(path: str) -> Dict[str, Any]:
@@ -359,79 +584,21 @@ def add_hp_tuning(sub) -> None:
     p.set_defaults(handler=hp_tuning)
 
 
-@log_elapsed_time
-def hp_tuning(ns: argparse.Namespace):
-    """Run the study; returns its best trial (the built-in study's record,
-    or Optuna's ``FrozenTrial``)."""
+def study_spec(ns: argparse.Namespace) -> StudySpec:
+    """The study of an ``hp-tuning`` command line; creates the storage
+    directory."""
     hp_params = _load_space(ns.hp_config_path)
     with open(ns.train_config_path, encoding="utf-8") as f:
         train_params = json.load(f)
     storage_path = os.path.abspath(ns.storage_path)
     os.makedirs(os.path.dirname(storage_path), exist_ok=True)
-    n_trials = ns.n_trials
+    train_params["tags"] = list(train_params.get("tags", [])) + [["study_name", ns.study_name]]
+    return StudySpec(ns.train_name, train_params, hp_params, ns.n_trials, ns.study_name,
+                     storage_path, ns.enable_trial_pruning, ns.device)
 
-    train_params.setdefault("tags", [])
-    train_params["tags"] = list(train_params["tags"]) + [
-        ["study_name", ns.study_name]
-    ]
-    criterion = "test/" + train_params.get("early_criterion", "loss")
-    direction = (
-        "minimize" if train_params.get("early_criterion") == "loss" else "maximize"
-    )
 
-    def objective(trial):
-        return _objective(
-            trial,
-            train_params,
-            hp_params,
-            ns.train_name,
-            criterion,
-            ns.enable_trial_pruning,
-            ns.device,
-        )
-
-    if HAVE_OPTUNA:
-        study = optuna.create_study(
-            study_name=ns.study_name,
-            storage=f"sqlite:///{storage_path}",
-            load_if_exists=True,
-            direction=direction,
-        )
-
-        def max_trial_callback(study, trial):
-            states = (
-                optuna.trial.TrialState.COMPLETE,
-                optuna.trial.TrialState.RUNNING,
-            )
-            if len([t for t in study.trials if t.state in states]) >= n_trials:
-                study.stop()
-            # The built-in study's backstop: PRUNED trials count toward a
-            # hard total-attempt cap.
-            if len(study.trials) >= max(10 * n_trials, n_trials + 20):
-                logger.warning(
-                    "stopping after %d total trials: search space prunes "
-                    "too aggressively",
-                    len(study.trials),
-                )
-                study.stop()
-
-        try:
-            study.optimize(objective, callbacks=[max_trial_callback])
-        except KeyboardInterrupt:
-            logger.info("Stop tuning.")
-        best = study.best_trial
-        logger.info("best_exp_num: %s", best.number)
-        logger.info("best_score: %s", best.value)
-        logger.info("best_params: %s", best.params)
-        return best
-    logger.warning("optuna not installed — using built-in random search")
-    study = RandomSearchStudy(storage_path, ns.study_name, direction)
-    try:
-        study.optimize(objective, n_trials=n_trials)
-    except KeyboardInterrupt:
-        logger.info("Stop tuning.")
-    best = study.best_trial
-    logger.info("best_exp_num: %s", best["number"])
-    logger.info("best_score: %s", best["value"])
-    logger.info("best_params: %s", best["params"])
-    return best
+@log_elapsed_time
+def hp_tuning(ns: argparse.Namespace):
+    """Run the study; returns its best trial (the built-in study's record,
+    or Optuna's ``FrozenTrial``)."""
+    return launch_study(study_spec(ns))[0]["best"]

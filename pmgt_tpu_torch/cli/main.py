@@ -22,8 +22,10 @@ stays out of the saved arguments. ``train_model`` is the workload
 dispatcher: it finalizes the status (FINISHED or FAILED) only of a run
 this invocation created or trained; ``--mode eval`` or ``inference``
 against an existing run leaves that run's status as it was.
-``hp-tuning`` (``cli/hpo.py``) runs each trial through ``train_model`` on
-one device; the data commands are in ``cli/data_cmds.py``.
+``hp-tuning`` (``cli/hpo.py``) runs each trial through ``train_model``,
+data-parallel over the train config's ``num_devices`` ranks (resolved as
+here), one launch for the whole study; the data commands are in
+``cli/data_cmds.py``.
 """
 from __future__ import annotations
 
@@ -347,9 +349,25 @@ def _train(train_name: str, ns: argparse.Namespace):
     return run_training(train_name, train_args(raw), ns.device, trio)
 
 
-def _rank_main(train_name: str, args: TrainArgs, device: str):
+def configure_logging() -> None:
+    """INFO records to standard error (the command line's, and each
+    spawned rank's)."""
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+
+
+def visible_devices(device: str) -> int:
+    """The ranks an unset ``num_devices`` takes: every visible card (at
+    least one: without a card the run raises), one on the CPU."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return 1
+    return max(torch.cuda.device_count(), 1)
+
+
+def _rank_main(train_name: str, args: TrainArgs, device: str):
+    configure_logging()
     return train_model(train_name, args, device=device)
 
 
@@ -359,11 +377,8 @@ def run_training(train_name: str, args: TrainArgs, device: str = "cuda", trio=No
     its own, or with ``trio`` = (coordinator, processes, process id) this
     host's share of a group across hosts. Returns rank 0's result (this
     host's first rank's, across hosts)."""
-    import torch
-
     n = args.num_devices
-    # every visible card (at least one: without a card the run raises)
-    visible = max(torch.cuda.device_count(), 1) if torch.device(device).type == "cuda" else 1
+    visible = visible_devices(device)
     if trio is None:
         ranks = n if n is not None else visible
         if ranks == 1:
@@ -509,11 +524,7 @@ def main(argv: Optional[Sequence[str]] = None):
     or its export (PMGT embeddings, a downstream model's top-k),
     hp-tuning's best trial, preprocess's artifacts, scrape-images' (done,
     failed) counts; None for the others."""
-    logging.basicConfig(
-        level=logging.INFO,
-        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
-        stream=sys.stderr,
-    )
+    configure_logging()
     ns = build_parser().parse_args(argv)
     return ns.handler(ns)
 

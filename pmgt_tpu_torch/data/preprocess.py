@@ -18,15 +18,21 @@ notebook's cells in parens).
 5. init embedding tables (30): rows 0/1 zeroed for <pad>/<mask>,
    random-normal rows for the nodes, from two generators
    ``default_rng([seed, 1])`` (visual) and ``default_rng([seed, 2])``
-   (textual). With ``extract_features=True`` the pre-extracted drop-in
-   ``<out_dir>/<dataset>_{visual,textual}_feats.npz`` fills the rows of
-   its items. The Inception-v4 and BERT extractors are not ported (their
-   weights are not in the repository): without a drop-in file the
-   modality logs the JAX package's warning and keeps random rows, as the
-   JAX package does when its extractor cannot load.
+   (textual). With ``extract_features=True`` each modality's rows come
+   from the pre-extracted drop-in ``<out_dir>/<dataset>_{visual,textual}_
+   feats.npz`` when it is there, else from its extractor
+   (``data/feature_extraction.py``: the item images under
+   ``<raw_dir>/images`` through ``visual_model`` and ``visual_transform``,
+   the pre-split review texts through ``text_model``, on
+   ``feature_device``), which writes that file. A modality falls back to
+   random rows, with the JAX package's warning, only when its extractor
+   is unavailable (``ExtractorUnavailable``: package, weights or model
+   path missing, or nothing to extract); any other error, on the device
+   or in a model's forward pass, raises.
 
-The artifacts equal the JAX package's bit for bit. Each stage's host time
-is logged (the record's ``stage_seconds`` attribute).
+The artifacts equal the JAX package's bit for bit wherever no extractor
+runs. Each stage's host time is logged (the record's ``stage_seconds``
+attribute).
 """
 from __future__ import annotations
 
@@ -232,17 +238,51 @@ def _load_feats_npz(path: str):
     return feats, mapping
 
 
-def _extract(out_dir: str, dataset_name: str, modality: str, extractor: str):
-    """The modality's pre-extracted features; raises when no drop-in file
-    is seeded (the extractors themselves are not ported)."""
-    path = os.path.join(out_dir, f"{dataset_name}_{modality}_feats.npz")
-    seeded = _load_feats_npz(path)
-    if seeded is None:
-        raise RuntimeError(
-            f"the {extractor} extractor is not ported to pmgt_tpu_torch; "
-            f"seed {path} with pre-extracted features"
-        )
-    return seeded
+def _extract_visual(raw_dir, out_dir, dataset_name, image_model, device, visual_model,
+                    visual_transform):
+    """The visual drop-in file's features, else those extracted from the
+    item images (and saved as that file)."""
+    out_npz = os.path.join(out_dir, f"{dataset_name}_visual_feats.npz")
+    seeded = _load_feats_npz(out_npz)
+    if seeded is not None:
+        return seeded
+    from pmgt_tpu_torch.data import feature_extraction as fx
+
+    images_dir = os.path.join(raw_dir, "images")
+    feats, mapping = fx.extract_visual_features(
+        fx.iter_item_images(images_dir), model=visual_model, transform=visual_transform,
+        model_name=image_model, device=device)
+    if not mapping:
+        raise fx.ExtractorUnavailable(f"no item images under {images_dir}")
+    fx.save_feats_npz(out_npz, feats, mapping)
+    return feats, mapping
+
+
+def _node_texts(pre, node_idx: Dict[str, int]) -> Dict[str, List[str]]:
+    """The non-empty pre-split review texts of each graph item, in review
+    order."""
+    texts: Dict[str, List[str]] = {}
+    for _, asin, _, text in pre:
+        if text and asin in node_idx:
+            texts.setdefault(asin, []).append(text)
+    return texts
+
+
+def _extract_textual(out_dir, dataset_name, node_texts, text_model, device):
+    """The textual drop-in file's features, else those extracted from the
+    review texts (and saved as that file)."""
+    out_npz = os.path.join(out_dir, f"{dataset_name}_textual_feats.npz")
+    seeded = _load_feats_npz(out_npz)
+    if seeded is not None:
+        return seeded
+    from pmgt_tpu_torch.data import feature_extraction as fx
+
+    feats, mapping = fx.extract_textual_features(node_texts, model_name=text_model,
+                                                 device=device)
+    if not mapping:
+        raise fx.ExtractorUnavailable("no review texts to extract from")
+    fx.save_feats_npz(out_npz, feats, mapping)
+    return feats, mapping
 
 
 def run_preprocess(
@@ -258,11 +298,17 @@ def run_preprocess(
     extract_features: bool = False,
     text_model: str = "bert-base-uncased",
     image_model: str = "inception_v4",
+    feature_device: str = "cuda",
+    visual_model=None,
+    visual_transform=None,
     download: bool = False,
 ) -> DatasetArtifacts:
     """Run the pipeline (module docstring) and return the artifacts, also
-    saved natively under ``<out_dir>/<dataset_name>``. ``text_model`` and
-    ``image_model`` only name the extractor in the warning."""
+    saved natively under ``<out_dir>/<dataset_name>``. ``text_model`` is a
+    local model directory (or a name in the local Hugging Face cache);
+    ``visual_model`` (default: timm's ``image_model``) and
+    ``visual_transform`` are the visual extractor's model and per-image
+    transform; extraction runs on ``feature_device``."""
     os.makedirs(out_dir, exist_ok=True)
     if not (0 <= test_size < 1):
         raise ValueError(
@@ -276,7 +322,7 @@ def run_preprocess(
 
     stages: Dict[str, float] = {}
     t = time.perf_counter()
-    reviews = _load_reviews(raw_dir)
+    reviews = _load_reviews(raw_dir, keep_text=extract_features)
     cutoff = _split_timestamp(split_date)
     pre = [r for r in reviews if r[2] < cutoff]
     post = [r for r in reviews if r[2] >= cutoff]
@@ -329,16 +375,22 @@ def run_preprocess(
     rng_t = np.random.default_rng([seed, 2])
     n = len(node_items)
     tables = []
-    for modality, rng, dim, extractor in (
-        ("visual", rng_v, visual_dim, image_model),
-        ("textual", rng_t, textual_dim, text_model),
-    ):
+    for modality, rng, dim in (("visual", rng_v, visual_dim), ("textual", rng_t, textual_dim)):
         if extract_features:
+            from pmgt_tpu_torch.data.feature_extraction import ExtractorUnavailable
+
             try:
-                feats, mapping = _extract(out_dir, dataset_name, modality, extractor)
+                if modality == "visual":
+                    feats, mapping = _extract_visual(raw_dir, out_dir, dataset_name, image_model,
+                                                     feature_device, visual_model,
+                                                     visual_transform)
+                else:
+                    feats, mapping = _extract_textual(out_dir, dataset_name,
+                                                      _node_texts(pre, node_idx), text_model,
+                                                      feature_device)
                 tables.append(_fill_table(rng, n, node_idx, feats, mapping))
                 continue
-            except Exception as exc:  # noqa: BLE001 — the JAX package's per-modality fallback
+            except ExtractorUnavailable as exc:  # the JAX package's fallback, narrowed
                 logger.warning(
                     "%s extraction unavailable (%s); falling back to "
                     "random %d-d rows",

@@ -3,4 +3,5 @@ from pmgt_tpu_torch.graph.container import (  # noqa: F401
     DeviceGraph,
     PaddedGraph,
     from_edges,
+    from_networkx,
 )

@@ -211,6 +211,20 @@ def from_edges(
     return _assemble(nbr_ids, nbr_logits, degrees, alias_prob, alias_idx)
 
 
+def from_networkx(graph, max_degree: Optional[int] = None) -> PaddedGraph:
+    """``from_edges`` of a networkx-like graph (``nodes()`` and
+    ``edges(data=True)``; networkx itself is not needed) whose nodes are a
+    contiguous integer range: 0..N-1, or the reference's relabeled 2..N+1
+    (reference pmgt/pmgt/trainer.py:34-43). Edge weights default to 1."""
+    nodes = sorted(graph.nodes())
+    n = len(nodes)
+    offset = nodes[0] if nodes else 0
+    if nodes != list(range(offset, offset + n)):
+        raise ValueError("graph nodes must be a contiguous integer range")
+    edges = [(u - offset, v - offset, data.get("weight", 1.0))
+             for u, v, data in graph.edges(data=True)]
+    return from_edges(n, edges, max_degree=max_degree)
+
 def _pack_alias(
     nbr_ids: np.ndarray,
     alias_prob: np.ndarray,

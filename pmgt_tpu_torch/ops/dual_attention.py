@@ -31,7 +31,8 @@ operands are [S, N, d] with keep masks [S, N, S]; batch-major operands are
   enabled. Launch counters: ``dual_attention_sm.launches`` (K1),
   ``dual_attention_sm_backward.launches`` (K2),
   ``dual_attention_bm_forward.launches`` (K3) and
-  ``dual_attention_bm_backward.launches`` (K4).
+  ``dual_attention_bm_backward.launches`` (K4); ``launch_counts()`` reads
+  the four.
 - ``DualAttentionSm`` / ``dual_attention_sm`` and ``DualAttentionBm``: the
   differentiable ops. They save (q, k, v, c, mask, m1, m2), as
   ``_fused_sm_fwd`` / ``_fused_fwd`` do. No gradient flows to the mask or
@@ -610,3 +611,9 @@ def dual_attention_pallas(
         q, k, v, c, mask, m1, m2, float(beta), float(keep), use_dropout
     )
     return out.reshape(b, h, s, d)
+
+
+def launch_counts() -> dict:
+    """The four kernels' launch counters: {"k1", "k2", "k3", "k4"}."""
+    return {"k1": dual_attention_sm.launches, "k2": dual_attention_sm_backward.launches,
+            "k3": dual_attention_bm_forward.launches, "k4": dual_attention_bm_backward.launches}

@@ -192,12 +192,12 @@ def test_unported_options_raise_when_a_run_starts(tmp_path, data_dir, option, mo
 
 
 def test_every_unported_option_is_named(tmp_path):
-    """What is left unported is named with its ROADMAP item: hp-tuning
-    over several devices."""
+    """What a trial refuses is named: the multi-host trio (a study is one
+    host's, as in the JAX package); several devices in a trial now run."""
     from pmgt_tpu_torch.cli import hpo
 
-    for extra in ({"num_devices": 2}, {"coordinator_address": "localhost:1"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1, hp-tuning over several"):
+    for extra in ({"coordinator_address": "localhost:1"}, {"process_id": 1}):
+        with pytest.raises(NotImplementedError, match="multi-host options"):
             hpo._objective(hpo.RandomTrial(0, np.random.default_rng(0)),
                            {"log_dir": str(tmp_path), **extra}, {}, "pmgt", "test/auc", False,
                            "cpu")
@@ -341,13 +341,18 @@ def test_option_defaults_equal_the_jax_commands(monkeypatch, command, argv):
     monkeypatch.chdir(ROOT)
     ns = build_parser().parse_args([command, *argv])
     want = _jax_command(command).make_context(command, list(argv)).params
-    assert _port_params(ns) == want
+    got = _port_params(ns)
+    if command == "preprocess" and "--feature-device" not in argv:
+        # the port's extractors follow --device (the card); the JAX default is the CPU
+        assert got.pop("feature_device") is None and want.pop("feature_device") == "cpu"
+    assert got == want
 
 
 def test_preprocess_command_passes_what_the_jax_command_passes(tmp_path, monkeypatch):
     """Through ``CliRunner`` (JAX) and ``main`` (port), ``preprocess``
-    hands ``run_preprocess`` the same arguments (the port takes no
-    ``feature_device``: it runs no extractor)."""
+    hands ``run_preprocess`` the same arguments, but for ``feature_device``:
+    the port's follows ``--device`` (the card), the JAX command's is the
+    CPU."""
     from pmgt_tpu.data import preprocess as jpre
     from pmgt_tpu_torch.data import preprocess as tpre
 
@@ -359,6 +364,9 @@ def test_preprocess_command_passes_what_the_jax_command_passes(tmp_path, monkeyp
     res = CliRunner().invoke(jax_cli, argv, obj={})
     assert res.exit_code == 0, res.output
     main(argv)
-    jax_kw = dict(seen["jax"])
-    assert jax_kw.pop("feature_device") == "cpu"
-    assert seen["torch"] == jax_kw
+    jax_kw, torch_kw = dict(seen["jax"]), dict(seen["torch"])
+    assert jax_kw.pop("feature_device") == "cpu" and torch_kw.pop("feature_device") == "cuda"
+    assert torch_kw == jax_kw
+    seen.clear()
+    main(["--device", "cpu", *argv, "--feature-device", "cuda:1"])
+    assert seen["torch"]["feature_device"] == "cuda:1"

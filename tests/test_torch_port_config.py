@@ -128,7 +128,8 @@ def test_port_sources_import_no_jax_and_no_pmgt_tpu():
     for new in ("cli/main.py", "cli/data_cmds.py", "train/engine.py",
                 "train/checkpoints.py", "train/registry.py", "cli/hpo.py",
                 "cli/space_yaml.py", "data/preprocess.py", "data/ingest.py",
-                "native/__init__.py", "core/mesh.py"):
+                "native/__init__.py", "core/mesh.py", "data/feature_extraction.py",
+                "utils/base.py"):
         assert os.path.join(ROOT, "pmgt_tpu_torch", new) in files
     bad, tried = [], set()
     for p in files:

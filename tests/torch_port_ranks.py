@@ -1,4 +1,5 @@
-"""What the ranks of ``tests/test_torch_port_multi_rank.py`` run.
+"""What the ranks of ``tests/test_torch_port_multi_rank.py`` and
+``tests/test_torch_port_hpo_multi_rank.py`` run.
 
 The functions here run inside processes that ``core.mesh.launch`` spawns
 (gloo on the CPU, one torch thread each) and, for the 1-rank references,
@@ -163,3 +164,32 @@ def barrier_flow() -> str:
     except RuntimeError as e:
         return f"raised {type(e).__name__}"
     return "passed"
+
+
+class ScriptedTrial:
+    """A study's trial whose ``should_prune`` is True from epoch
+    ``prune_at`` on."""
+
+    def __init__(self, number: int, prune_at: int):
+        self.number, self.prune_at, self.reports = number, prune_at, []
+
+    def report(self, value, step):
+        self.reports.append((value, step))
+
+    def should_prune(self):
+        return self.reports[-1][1] >= self.prune_at
+
+
+def scripted_prune(train_name: str, params: dict, prune_at: int) -> dict:
+    """One trial of ``params`` through ``hpo``'s rank path with pruning
+    enabled: rank 0 holds a ``ScriptedTrial``, the other ranks none."""
+    from pmgt_tpu_torch.cli import hpo
+
+    mesh = tmesh.current_mesh()
+    trial = ScriptedTrial(0, prune_at) if mesh.is_primary else None
+    records = []
+    msg = {"number": 0, "params": params, "suggested": {}}
+    hpo._train_trial(msg, train_name, "test/" + params["early_criterion"], True, "cpu", mesh,
+                     trial, records)
+    return {"rank": mesh.rank, "record": records[0],
+            "reports": None if trial is None else trial.reports}
