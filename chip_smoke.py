@@ -3,9 +3,13 @@ holds each against its plain PyTorch version, drives the serving path and
 the training path, and checks what comes out.
 
     python3 chip_smoke.py                 # one card
-    python3 chip_smoke.py --multi-card    # only phase 21's PMGT jobs and the
+    python3 chip_smoke.py --scale         # one card: the scale smoke at 100k
+                                          # and 1M nodes, 2.5M nodes bf16/int8
+    python3 chip_smoke.py --multi-card [pmgt] [studies] [scale]
+                                          # phase 21's PMGT jobs, the
                                           # hp-tuning command at 2 and 4 NCCL
-                                          # ranks, a card each
+                                          # ranks, a card each, and 2.5M nodes
+                                          # sharded over 4 (all when none named)
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -146,6 +150,10 @@ Phases (any failure raises and the script exits non-zero):
     layers take the plain attention, as in JAX), ``--feat-tables-dtype
     int8`` and ``--profile-dir`` (a trace file written); step-1 gradients
     with and without checkpointing (f32) within 1e-6·max|g| + 1e-10.
+16b. Six ``train_model`` calls in a fresh process (its first six
+    profiler sessions), each with a ``profile_dir`` of its own, one step at
+    hidden 32: every trace holds device kernel events and no call raised
+    (``--profile-dir`` raises when a session records no device event).
 
 17. ``preprocess`` through ``main()`` on a seeded review dump in the
     Amazon layout (``write_review_dump``: 12,000 items, 150,000 reviewers,
@@ -227,7 +235,29 @@ Phases (any failure raises and the script exits non-zero):
     ``gc.collect()`` within 16 MB of that rank's level before the
     studies. ``--multi-card`` runs the ``hp-tuning`` command itself (its
     parser and launch) with the PMGT study at 2 and 4 NCCL ranks, a card
-    each, on its TG-shape data, with the same checks.
+    each, on its TG-shape data, with the same checks. In the two gloo
+    ranks the PMGT task's refresh budget with ``PMGT_TORCH_HBM_BYTES`` 0 on
+    rank 0 (the floor, 8,192) and the card's memory on rank 1 (65,536):
+    both ranks report the agreed 8,192.
+22. Production scale (run before 21): ``tools/scale_smoke``'s
+    configuration at 100,000 nodes (synthetic TG layout, average degree
+    16, feature widths 1536/768; the default width under the bf16 policy,
+    batch 512, ``gather_rows``): one refresh (two chunks of 65,536), one
+    epoch (195 steps), valid AUC and export, K1 = 5·(steps + evaluation
+    chunks + export chunks) and K2 = 5·steps exactly, the loss falling;
+    one chunk's measured transient (``torch.cuda.max_memory_allocated``)
+    within 25% of ``refresh_transient_bytes`` at 8,192, 16,384 and 65,536
+    nodes; ``PMGT_TORCH_HBM_BYTES`` set so that the budget gives 16,384
+    (seven chunks): the refresh's peak within the budget, and the chunked
+    table's context distribution (context size and direct neighbours a
+    node) within TV 0.05 of the unforced one's. Then step-1 gradients of
+    the kernel route within 1e-4·max|g| of the plain route, under the f32
+    policy. ``--scale`` runs the scale smoke at 100,000 and 1,000,000 nodes
+    (a warm-up and 3 measured epochs each) and 2,500,000 nodes with bf16
+    and int8 tables (one refresh and 3 steps), with memory, refresh, step
+    and rate; ``--multi-card scale`` the 2,500,000 nodes row-sharded over 4
+    NCCL ranks against one card: each rank's tables the total over 4 up to
+    the block's padding, one chunk on every rank, losses within rtol 2e-4.
 K1 and K2 are also checked (phases 2 and 5) at the PMGT search space's
 shapes: bf16, S = 6, N = 384, keep masks, at d = 64 and at d = 32 with β =
 0, 0.25 and 1; at β = 0 K2's dc must be exactly 0 on both sides.
@@ -1288,7 +1318,7 @@ def run_training(task) -> dict:
     return row
 
 
-def compare_training_routes(make_task) -> dict:
+def compare_training_routes(make_task, phase: str = "train_route_check") -> dict:
     """Three steps on the kernel route and on the plain route from the same
     weights, training draw and per-step generators. Step-1 gradients within
     1e-4 * max|g| + 1e-8 per parameter (the floor is for the key biases,
@@ -1341,7 +1371,7 @@ def compare_training_routes(make_task) -> dict:
     ok = (worst_excess <= 1.0 and loss_rel <= 1e-4
           and launches["plain"] == (0, 0) and min(launches["kernel"]) > 0)
     row = {
-        "phase": "train_route_check",
+        "phase": phase,
         "losses_kernel": losses["kernel"].tolist(),
         "losses_plain": losses["plain"].tolist(),
         "loss_max_rel_diff": loss_rel,
@@ -2107,6 +2137,9 @@ def run_published_pmgt_ncf(art_cut, data_dir: str, root: str) -> dict:
 
 MR_PMGT_JOBS = (("replicated", {}),
                 ("sharded", {"shard_feat_tables": True, "shard_graph_tables": True}))
+# The refresh budget of the gloo ranks: rank 0 budgets no memory (the
+# chunk's floor, 8,192), rank 1 the card's; both must draw in 8,192.
+MR_BUDGET_ENV = (0, None)
 MR_DOWNSTREAM_JOBS = (("ncf", "ncf_task", "NeuMF-end", {}),
                       ("dcn", "dcn_task", "DCN", {}),
                       ("pmgt_ncf", "pmgt_ncf_task", "NeuMF-end",
@@ -2191,14 +2224,44 @@ def _mr_downstream(data_dir: str, module: str, model_name: str, extra: dict) -> 
             "metrics": metrics, "top": top}
 
 
-def multi_rank_work(pmgt_data: str, cut_data: str, jobs, downstream, studies=()) -> dict:
+def _mr_refresh_agreement(data_dir: str, hbm_bytes) -> dict:
+    """The default PMGT task's refresh budget in this rank with
+    ``PMGT_TORCH_HBM_BYTES`` = ``hbm_bytes`` (None: unset): the chunk this
+    rank's budget gives and the chunk the ranks agreed on."""
+    from pmgt_tpu_torch.core.config import TrainArgs
+    from pmgt_tpu_torch.core.device import MEMORY_ENV
+    from pmgt_tpu_torch.sampling.pairs import effective_refresh_chunk
+    from pmgt_tpu_torch.tasks import pmgt_task
+
+    saved = os.environ.pop(MEMORY_ENV, None)
+    if hbm_bytes is not None:
+        os.environ[MEMORY_ENV] = str(hbm_bytes)
+    try:
+        args = TrainArgs(seed=0, test_batch_size=256, num_epochs=1, data_dir=data_dir,
+                         dataset_name="TG")
+        ctx = {"device": "cuda", "artifacts": _mr_artifacts(data_dir, "TG")}
+        pmgt_task.init_dataloader(args, ctx)
+        pmgt_task.init_model(args, ctx)
+    finally:
+        os.environ.pop(MEMORY_ENV, None)
+        if saved is not None:
+            os.environ[MEMORY_ENV] = saved
+    task = ctx["task"]
+    return {"hbm_bytes": hbm_bytes, **task.refresh,
+            "own_chunk": effective_refresh_chunk(task.graph, task.sampling,
+                                                 task.refresh["free_bytes"])}
+
+
+def multi_rank_work(pmgt_data: str, cut_data: str, jobs, downstream, studies=(),
+                    budget_env=None) -> dict:
     """The multi_rank phase's work in one rank (or, without a group, in
-    this process): the PMGT jobs, then the downstream jobs, then each
-    hp-tuning study of ``studies`` ((name, [``StudySpec``, ...]): the
-    specs run one after the other, a resume after a first run) through
-    ``hpo.run_study`` inside the group, with the card's allocated bytes
-    before the first study and the launch counts zeroed just before and
-    read just after the studies."""
+    this process): the PMGT jobs, then the downstream jobs, then (with
+    ``budget_env``, a ``PMGT_TORCH_HBM_BYTES`` value a rank) the PMGT
+    task's refresh budget, then each hp-tuning study of ``studies``
+    ((name, [``StudySpec``, ...]): the specs run one after the other, a
+    resume after a first run) through ``hpo.run_study`` inside the group,
+    with the card's allocated bytes before the first study and the launch
+    counts zeroed just before and read just after the studies."""
     sys.path.insert(0, HERE)
     import gc
 
@@ -2222,6 +2285,8 @@ def multi_rank_work(pmgt_data: str, cut_data: str, jobs, downstream, studies=())
         out[name] = _mr_downstream(cut_data, module, model_name, extra)
         out[name]["job_s"] = time.perf_counter() - t
     mesh.enable_timing(False)
+    if budget_env is not None:
+        out["refresh_agreement"] = _mr_refresh_agreement(pmgt_data, budget_env[m.rank])
     if studies:
         gc.collect()
         torch.cuda.synchronize()
@@ -2316,7 +2381,8 @@ def run_multi_rank(pmgt_data: str, cut_data: str, log_root: str, studies=()) -> 
     t0 = time.perf_counter()
     gloo = mesh.launch(multi_rank_work, 2, (pmgt_data, cut_data, MR_PMGT_JOBS,
                                             MR_DOWNSTREAM_JOBS,
-                                            [(name, specs) for name, specs, _ in studies]),
+                                            [(name, specs) for name, specs, _ in studies],
+                                            MR_BUDGET_ENV),
                        device="cuda", backend="gloo", timeout_s=400, run_timeout_s=700)
     gloo_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2372,6 +2438,13 @@ def run_multi_rank(pmgt_data: str, cut_data: str, log_root: str, studies=()) -> 
                       "reference": row(ref, name), "checks": checks,
                       "metrics": [g[name]["metrics"] for g in gloo],
                       "reference_metrics": r0["metrics"], "ok": good})
+    agreement = [g["refresh_agreement"] for g in gloo]
+    agreed = ([a["own_chunk"] for a in agreement] == [8_192, 65_536]
+              and [a["chunk"] for a in agreement] == [8_192, 8_192])
+    ok &= agreed
+    lines.append({"phase": "multi_rank", "job": "refresh_agreement", "backend": gloo[0]["backend"],
+                  "ranks": [{k: a[k] for k in ("hbm_bytes", "free_bytes", "own_chunk", "chunk")}
+                            for a in agreement], "ok": agreed})
     t0 = time.perf_counter()
     study_results = {}
     for name, specs, num_nodes in studies:
@@ -2460,8 +2533,14 @@ def run_multi_card(root: str) -> dict:
     return out
 
 
-def multi_card_main() -> int:
-    """``python3 chip_smoke.py --multi-card``: only ``run_multi_card``."""
+MULTI_CARD_JOBS = ("pmgt", "studies", "scale")
+
+
+def multi_card_main(jobs=MULTI_CARD_JOBS) -> int:
+    """``python3 chip_smoke.py --multi-card [pmgt] [studies] [scale]``:
+    phase 21's PMGT jobs (``run_multi_card``), the hp-tuning command
+    (``run_multi_card_studies``) and the 2,500,000-node sharded run
+    (``run_multi_card_scale``); all three when none is named."""
     sys.path.insert(0, HERE)
     import torch
 
@@ -2478,12 +2557,15 @@ def multi_card_main() -> int:
 
     build.build_all()
     root = os.path.join(HERE, "outputs", "chip_smoke_multi_card")
-    out = run_multi_card(root)
-    studies = run_multi_card_studies(root)
-    emit({"phase": "multi_card", "cards": smi, **{k: v for k, v in out.items()
-                                                  if k.endswith("_s") or k == "ok"},
-          **{k: v for k, v in studies.items() if k.endswith("_s")}})
-    return 0 if out["ok"] and studies["ok"] else 1
+    out = run_multi_card(root) if "pmgt" in jobs else {"ok": True}
+    studies = run_multi_card_studies(root) if "studies" in jobs else {"ok": True}
+    scale = run_multi_card_scale() if "scale" in jobs else {"ok": True}
+    emit({"phase": "multi_card", "cards": smi, "jobs": list(jobs),
+          **{k: v for k, v in out.items() if k.endswith("_s")},
+          **{k: v for k, v in studies.items() if k.endswith("_s")},
+          "command_s": time.perf_counter() - T_START,
+          "ok": out["ok"] and studies["ok"] and scale["ok"]})
+    return 0 if out["ok"] and studies["ok"] and scale["ok"] else 1
 
 
 def run_options(data_dir: str, root: str) -> dict:
@@ -3436,6 +3518,352 @@ def run_feature_extraction(root: str) -> dict:
     return row
 
 
+# ---- production scale: the memory-aware refresh chunk ------------------------
+
+SCALE_NODES = 100_000  # the scale phase's graph: 100,002 rows, two default chunks
+SCALE_FORCED_CHUNK = 16_384  # the chunk under the forced budget: seven chunks
+TRANSIENT_TOL = 0.25  # a chunk's measured transient against refresh_transient_bytes
+
+
+def context_histogram(ids, mask, graph):
+    """The contexts' distribution a node, pooled over the real nodes: the
+    share of nodes with context size k (0..M) of which j are the node's
+    direct neighbours, over the (k, j) cells."""
+    import torch
+
+    m = ids.shape[1] - 1
+    ctx, valid = ids[2:, 1:], mask[2:, 1:] > 0
+    direct = ((ctx[:, :, None] == graph.nbr_ids[2:, None, :]).any(-1) & valid).sum(1)
+    cell = valid.sum(1) * (m + 1) + direct
+    return torch.bincount(cell, minlength=(m + 1) ** 2).double() / cell.numel()
+
+
+def run_scale() -> dict:
+    """The ``scale`` phase: PMGT pre-training at 100,000 nodes on one card
+    through ``tools/scale_smoke`` (TG-layout synthetic data, average
+    degree 16, feature widths 1536/768; the default width under the bf16
+    policy, batch 512; the ``gather_rows`` dataflow). One refresh (two
+    chunks of 65,536), one epoch, valid AUC and export, counted; each
+    chunk's measured transient at 8,192 and 65,536 nodes within 25% of
+    ``refresh_transient_bytes``; then ``PMGT_TORCH_HBM_BYTES`` set so that
+    the budget gives 16,384 (seven chunks): the refresh's peak within the
+    budget, its chunk's transient within 25%, and the context distribution
+    of the chunked table against the unforced one's (TV < 0.05, the bound
+    of tests/test_sampler_parity.py). Then step-1 gradients of the kernel
+    route against the plain route under the f32 policy (§2's 1e-4·max|g|
+    holds f32 routes)."""
+    import gc
+
+    import torch
+
+    from pmgt_tpu_torch.core.device import MEMORY_ENV
+    from pmgt_tpu_torch.sampling.pairs import refresh_transient_bytes
+    from pmgt_tpu_torch.tasks.pmgt_task import REFRESH_HEADROOM
+    from pmgt_tpu_torch.tools import scale_smoke as ss
+
+    t0 = time.perf_counter()
+    art = ss.make_dataset(SCALE_NODES)
+    gen_s = time.perf_counter() - t0
+    (task, build_ms) = timed(lambda: ss.build_task(art, ss.train_args()))
+    budget, fusion = dict(task.refresh), task.config.fusion_strategy
+    rows = task.sampling.num_total
+    transients = [ss.chunk_transient(task, c) for c in (8_192, 65_536)]
+
+    zero_launches()
+    epoch = ss.run_epoch(task, 0)
+    metrics, eval_ms = timed(lambda: task.evaluate("valid"))
+    emb, export_ms = timed(task.export_embeddings)
+    launches = read_launches()
+    steps, bs = epoch["steps"], task.args.train_batch_size
+    chunks_eval = math.ceil(len(task.valid_nodes) / bs)
+    chunks_export = math.ceil(art.num_nodes / bs)
+    layers = task.config.num_hidden_layers
+    want = {"k1": layers * (steps + chunks_eval + chunks_export), "k2": layers * steps,
+            "k3": 0, "k4": 0}
+    losses = np.asarray(epoch.pop("losses"))
+    base_hist = context_histogram(task._train_ctx[0], task._train_ctx[1], task.graph)
+
+    free = 3 * refresh_transient_bytes(task.sampling, SCALE_FORCED_CHUNK)
+    os.environ[MEMORY_ENV] = str(REFRESH_HEADROOM + budget["persistent_bytes"]
+                                 + budget["cached_bytes"] + free)
+    try:
+        forced = ss.build_task(art, ss.train_args())
+    finally:
+        del os.environ[MEMORY_ENV]
+    (_, forced_ms), forced_peak = ss.peak_over(
+        forced.device, lambda: timed(lambda: forced.on_epoch_start(0)))
+    forced_hist = context_histogram(forced._train_ctx[0], forced._train_ctx[1], forced.graph)
+    tv = 0.5 * float((base_hist - forced_hist).abs().sum())
+    transients.append(ss.chunk_transient(forced, SCALE_FORCED_CHUNK))
+    forced_budget = dict(forced.refresh)
+    del forced, task
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ratio_ok = all(abs(t["measured_over_formula"] - 1) <= TRANSIENT_TOL for t in transients)
+    checks = {
+        "default_chunk_two_chunks": budget["chunk"] == 65_536 and math.ceil(rows / 65_536) == 2,
+        "gather_rows": fusion == "gather_rows",
+        "forced_chunk_seven_chunks": (forced_budget["chunk"] == SCALE_FORCED_CHUNK
+                                      and math.ceil(rows / SCALE_FORCED_CHUNK) == 7),
+        "forced_refresh_peak_within_budget": forced_peak <= forced_budget["free_bytes"],
+        "chunk_transients_within_25pct": ratio_ok,
+        "context_tv_below_0.05": tv < 0.05,
+        "launches_exact": launches == want,
+        "losses_finite": bool(np.isfinite(losses).all()),
+        "loss_falls": float(losses[-5:].mean()) < float(losses[:5].mean()),
+        "export_finite": emb.shape == (art.num_nodes, 128) and bool(np.isfinite(emb).all()),
+        "auc_finite": bool(np.isfinite(metrics["val/auc"])),
+    }
+    row = {"phase": "scale", "num_nodes": art.num_nodes, "rows": rows,
+           "max_degree": art.graph.max_degree, "generation_s": gen_s, "task_build_ms": build_ms,
+           "fusion": fusion, "refresh_budget": budget,
+           "forced_budget": forced_budget, "forced_refresh_ms": forced_ms,
+           "forced_refresh_peak_bytes": forced_peak, "chunk_transients": transients,
+           "context_tv": tv, "epoch": epoch, "loss_first5": float(losses[:5].mean()),
+           "loss_last5": float(losses[-5:].mean()), "evaluate_ms": eval_ms,
+           "export_ms": export_ms, **metrics, "launches": launches,
+           "expected_launches": want, "eval_chunks": chunks_eval,
+           "export_chunks": chunks_export, "checks": checks, "ok": all(checks.values())}
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"the scale phase failed: {checks}")
+    routes = compare_training_routes(
+        lambda impl: ss.build_task(art, ss.train_args(mp_enabled=False, attention_impl=impl)),
+        "scale_train_route_check")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"row": row, "routes": routes, "launches": launches}
+
+
+def scale_capacity(art, dtype: str, steps: int = 3) -> dict:
+    """One refresh and ``steps`` steps of the scale configuration with
+    ``dtype`` feature tables on one card: resident and peak memory, the
+    refresh and the steps."""
+    import gc
+
+    import torch
+
+    from pmgt_tpu_torch.tools import scale_smoke as ss
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    ss.memory("cuda", reset=True)
+    task, build_s = ss.timed_build(art, ss.train_args(feat_tables_dtype=dtype))
+    resident = ss.memory("cuda")["allocated_bytes"]
+    zero_launches()
+    epoch = ss.run_epoch(task, 0, steps)
+    out = {"phase": "scale_capacity", "num_nodes": art.num_nodes, "feat_tables_dtype": dtype,
+           "task_build_s": build_s, "resident_bytes": resident, **ss.memory("cuda"),
+           "card_bytes": torch.cuda.get_device_properties(0).total_memory,
+           **ss.table_bytes(task), "refresh_budget": task.refresh,
+           "chunks": math.ceil(task.sampling.num_total / task.refresh["chunk"]),
+           **epoch, "launches": read_launches()}
+    out["ok"] = out["losses_finite"] and out["launches"]["k2"] == 5 * steps
+    del task
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def scale_main() -> int:
+    """``python3 chip_smoke.py --scale``: the scale smoke at 100,000 and
+    1,000,000 nodes (a warm-up epoch and 3 measured epochs each), then
+    2,500,000 nodes with bf16 and with int8 feature tables (one refresh
+    and 3 steps each), all on one card."""
+    sys.path.insert(0, HERE)
+    import gc
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device: the port's kernels need a GPU", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    from pmgt_tpu_torch.ops import build
+    from pmgt_tpu_torch.tools import scale_smoke as ss
+
+    build.build_all()
+    ok = True
+    for n in (100_000, 1_000_000):
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        opts = vars(ss.parse(["--num-nodes", str(n)]))
+        out = ss.smoke(opts, lambda row, n=n: emit({**row, "scale_nodes": n}))
+        steps = sum(len(l) for l in out["losses"])
+        launches = read_launches()
+        finite = all(np.isfinite(l).all() for l in out["losses"])
+        ok &= finite and launches["k2"] == 5 * steps
+        emit({"phase": "scale_run", "num_nodes": n, "steps": steps, "launches": launches,
+              "peak_allocated_bytes": torch.cuda.max_memory_allocated(), "losses_finite": finite})
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    art = ss.make_dataset(2_500_000)
+    emit({"phase": "scale_capacity_data", "num_nodes": art.num_nodes,
+          "max_degree": art.graph.max_degree, "generation_s": time.perf_counter() - t0})
+    for dtype in ("bfloat16", "int8"):
+        ok &= scale_capacity(art, dtype)["ok"]
+    emit({"phase": "scale", "cards": smi, "command_s": time.perf_counter() - T_START, "ok": ok})
+    return 0 if ok else 1
+
+
+def scale_card_rank(num_nodes: int, steps: int, device: str = "cuda") -> dict:
+    """In each of the ``--multi-card`` ranks: the scale configuration at
+    ``num_nodes`` with both shard flags, one refresh and ``steps`` steps;
+    then rank 0 leaves the group and runs the same on its card alone
+    with replicated tables."""
+    sys.path.insert(0, HERE)
+    import gc
+
+    import torch
+
+    from pmgt_tpu_torch.core import mesh
+    from pmgt_tpu_torch.tools import scale_smoke as ss
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = mesh.current_mesh(device)
+    t0 = time.perf_counter()
+    art = ss.make_dataset(num_nodes)
+    out = {"rank": m.rank, "ranks": m.size, "generation_s": time.perf_counter() - t0}
+
+    def run(args):
+        ss.memory(m.device, reset=True)
+        task, build_s = ss.timed_build(art, args, m.device)
+        row = {"task_build_s": build_s, **ss.table_bytes(task), "refresh_budget": task.refresh,
+               "resident_bytes": ss.memory(m.device)["allocated_bytes"],
+               **ss.run_epoch(task, 0, steps)}
+        del task
+        gc.collect()
+        return {**row, **ss.memory(m.device)}
+
+    out["sharded"] = run(ss.train_args(shard_feat_tables=True, shard_graph_tables=True,
+                                       num_devices=m.size))
+    if m.rank == 0:
+        mesh.stop()
+        if m.device.type == "cuda":
+            torch.cuda.empty_cache()
+        out["replicated"] = run(ss.train_args())
+    return out
+
+
+def run_multi_card_scale(n_cards: int = 4, num_nodes: int = 2_500_000, steps: int = 3,
+                         device: str = "cuda") -> dict:
+    """``--multi-card`` at scale: 2,500,000 nodes row-sharded (both flags)
+    over ``n_cards`` NCCL ranks, one refresh and 3 steps, against one card
+    with replicated tables: each rank's feature tables the total over the
+    ranks up to the padding of the block, the chunk the same on every rank
+    and the losses within rtol 2e-4 (tests/test_scale_sharded.py's
+    tolerance)."""
+    import torch
+
+    from pmgt_tpu_torch.core import mesh
+
+    n = min(n_cards, torch.cuda.device_count()) if device == "cuda" else n_cards
+    t = time.perf_counter()
+    got = mesh.launch(scale_card_rank, n, (num_nodes, steps, device), device=device,
+                      timeout_s=900, run_timeout_s=1800)
+    launch_s = time.perf_counter() - t
+    ref = got[0]["replicated"]
+    total = got[0]["sharded"]["feat_total"]
+    row_bytes = total / (num_nodes + 2)
+    per_rank = [g["sharded"]["feat_rank"] for g in got]
+    losses = [np.asarray(g["sharded"]["losses"]) for g in got]
+    rel = float(max(np.max(np.abs(l - ref["losses"]) / np.abs(ref["losses"])) for l in losses))
+    checks = {
+        "rank_bytes_total_over_ranks": all(abs(b - total / n) <= row_bytes for b in per_rank),
+        "same_chunk_every_rank": len({g["sharded"]["refresh_budget"]["chunk"] for g in got}) == 1,
+        "losses_within_rtol_2e-4": rel <= 2e-4,
+        "losses_finite": all(np.isfinite(l).all() for l in losses),
+    }
+    row = {"phase": "multi_card_scale", "num_nodes": num_nodes, "ranks": n, "steps": steps,
+           "launch_s": launch_s, "loss_max_rel_diff": rel,
+           "per_rank": [{k: v for k, v in g["sharded"].items() if k != "losses"} | {
+               "rank": g["rank"], "generation_s": g["generation_s"],
+               "losses": g["sharded"]["losses"]} for g in got],
+           "replicated_one_card": ref, "checks": checks, "ok": all(checks.values())}
+    emit(row)
+    return row
+
+
+# ---- torch.profiler across sessions ------------------------------------------
+
+PROFILE_SESSIONS = 6
+
+
+def trace_kernels(profile_dir: str) -> int:
+    """Device kernel events in the ``*.pt.trace.json`` files of a profile
+    directory."""
+    n = 0
+    for name in os.listdir(profile_dir) if os.path.isdir(profile_dir) else []:
+        if name.endswith(".pt.trace.json"):
+            with open(os.path.join(profile_dir, name)) as f:
+                n += sum(1 for e in json.load(f).get("traceEvents", [])
+                         if e.get("cat") == "kernel")
+    return n
+
+
+def profile_sessions(root: str, n: int = PROFILE_SESSIONS) -> dict:
+    """``n`` ``train_model`` calls in this process, each with a
+    ``profile_dir`` of its own, one step each at a tiny width (hidden 32,
+    1 layer, 300 nodes): the kernel events in each trace, or the error
+    of a call whose trace recorded none."""
+    sys.path.insert(0, HERE)
+    import shutil
+
+    from pmgt_tpu_torch.cli.main import train_model
+    from pmgt_tpu_torch.core.config import TrainArgs
+    from pmgt_tpu_torch.data.artifacts import save_native
+    from pmgt_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    shutil.rmtree(root, ignore_errors=True)
+    save_native(os.path.join(root, "syn"), make_synthetic_dataset(
+        num_nodes=300, num_users=20, feat_dims=(64, 32), avg_degree=6, seed=0))
+    kernels, errors = [], []
+    for i in range(n):
+        prof = os.path.join(root, f"profile{i}")
+        args = TrainArgs(model_name="pmgt", dataset_name="syn", data_dir=root,
+                         log_dir=os.path.join(root, "logs"), seed=0, num_epochs=1,
+                         train_batch_size=32, test_batch_size=64, valid_size=0.8,
+                         profile_dir=prof, extra=dict(hidden_size=32, intermediate_size=32,
+                                                      num_hidden_layers=1))
+        try:
+            train_model("pmgt", args, device="cuda")
+            errors.append(None)
+        except RuntimeError as e:
+            errors.append(str(e))
+        kernels.append(trace_kernels(prof))
+    return {"kernels": kernels, "errors": errors}
+
+
+def run_profile_sessions(root: str) -> dict:
+    """The ``profile_sessions`` check in a fresh process (so that its
+    sessions are the process's first six): every trace holds device
+    kernel events."""
+    code = ("import json, sys; sys.path.insert(0, '.'); import chip_smoke; "
+            f"print(json.dumps(chip_smoke.profile_sessions({root!r})))")
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=HERE, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the profiler sessions failed: {proc.stderr[-4000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    row = {"phase": "profile_sessions", "sessions": len(out["kernels"]), **out,
+           "wall_s": time.perf_counter() - t,
+           "ok": all(k > 0 for k in out["kernels"]) and not any(out["errors"])}
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"a profiled train_model call recorded no device event: {row}")
+    return row
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "pmgt_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository",
@@ -3632,8 +4060,11 @@ def main() -> int:
     # ---- 16. the remaining options of train-pmgt (--profile-dir opens the
     # last profiler session, so it comes after the profiled passes)
     options = run_options(cli_data, os.path.join(HERE, "outputs", "chip_smoke_options"))
-
     clock("options")
+    # six profiled train_model calls in a fresh process: a trace each
+    prof_sessions = run_profile_sessions(os.path.join(HERE, "outputs",
+                                                      "chip_smoke_profile_sessions"))
+    clock("profile_sessions")
 
     # ---- 17-19. the data and tuning commands: preprocess a review dump,
     # then hp-tuning on it (PMGT trials on K1/K2; the NeuMF-PMGT search)
@@ -3649,6 +4080,10 @@ def main() -> int:
     # ---- 20. the feature extractors on the card (stand-in models)
     fx_row = run_feature_extraction(os.path.join(HERE, "outputs", "chip_smoke_features"))
     clock("feature_extraction")
+
+    # ---- 22. production scale: 100,000 nodes, the budgeted refresh chunk
+    scale = run_scale()
+    clock("scale")
 
     # ---- 21. data parallelism: one NCCL rank; two gloo ranks sharing the
     # card (train-pmgt replicated and sharded, NCF, DCN, PMGT_NCF, then
@@ -3698,6 +4133,7 @@ def main() -> int:
           "options": opt_launches["k1"],
           "hpo_pmgt_trials": hpo_launches["k1"],
           "hpo_ncf_exports": export_launches["k1"],
+          "scale": scale["launches"]["k1"],
           "multi_rank": multi["launches"]["k1"]}),
         ("dual_attention_bwd_sm", K2_SOURCE, K2_REPLACES, pick(k2_checks, 3072), k2_checks,
          {"serving": kern["row"]["k2_launches"], "training": train["k2_launches"],
@@ -3712,6 +4148,7 @@ def main() -> int:
           "options": opt_launches["k2"],
           "hpo_pmgt_trials": hpo_launches["k2"],
           "hpo_ncf_exports": export_launches["k2"],
+          "scale": scale["launches"]["k2"],
           "multi_rank": multi["launches"]["k2"]}),
         ("dual_attention_fwd_bm", K1_SOURCE, K3_REPLACES, pick(k3_checks, 3072),
          [r for r in k3_checks if r["dtype"] == "float32"],
@@ -3760,6 +4197,8 @@ def main() -> int:
                    multi_rank=multi["lines"], multi_rank_summary=multi["summary"],
                    multi_rank_studies=multi["studies"], feature_extraction=fx_row,
                    preprocess=pre["row"], hpo_pmgt=hpo_pmgt, hpo_ncf=hpo_ncf,
+                   scale=scale["row"], scale_routes=scale["routes"],
+                   profile_sessions=prof_sessions,
                    command_s=time.perf_counter() - T_START)
     emit({"phase": "command_time", "seconds": results["command_s"]})
     os.makedirs(os.path.join(HERE, "outputs"), exist_ok=True)
@@ -3774,5 +4213,18 @@ def main() -> int:
     return 0
 
 
+def cli() -> int:
+    argv = sys.argv[1:]
+    if argv[:1] == ["--multi-card"] and set(argv[1:]) <= set(MULTI_CARD_JOBS):
+        return multi_card_main(tuple(argv[1:]) or MULTI_CARD_JOBS)
+    if argv == ["--scale"]:
+        return scale_main()
+    if argv:
+        print(f"unknown arguments {argv}: none, --scale, or --multi-card "
+              f"[{'] ['.join(MULTI_CARD_JOBS)}]", file=sys.stderr)
+        return 2
+    return main()
+
+
 if __name__ == "__main__":
-    sys.exit(multi_card_main() if sys.argv[1:] == ["--multi-card"] else main())
+    sys.exit(cli())

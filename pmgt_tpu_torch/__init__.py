@@ -20,7 +20,9 @@ published training scripts runs (the bf16 compute policy ``--mp-enabled``,
 bf16/int8 feature tables, per-step sampling, gradient checkpointing,
 relative positions), data-parallel over several cards
 (``core/mesh.py``), and so do ``hp-tuning`` (data-parallel trials),
-``preprocess`` (with the feature extractors) and ``scrape-images``. The
+``preprocess`` (with the feature extractors) and ``scrape-images``; the
+per-epoch refresh sizes its node chunk to the card's memory, and
+``tools/scale_smoke.py`` runs pre-training at 100k+ nodes. The
 dual attention runs as
 two hand-written CUDA kernels, the forward
 (``ops/csrc/dual_attention_fwd.cu``) and the backward

@@ -471,15 +471,28 @@ def train_model(
 def _profiled(fn, profile_dir: str, device: str) -> None:
     """``fn()`` under ``torch.profiler`` (host, and the card on a CUDA
     device); the trace goes to ``profile_dir`` as a
-    ``*.pt.trace.json`` file, also when ``fn`` raises."""
+    ``*.pt.trace.json`` file, also when ``fn`` raises. On a card, a
+    session that ran ``fn`` to its end but recorded no device event
+    raises instead of writing a trace without the card's timeline."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
-    activities = [ProfilerActivity.CPU]
-    if str(device).startswith("cuda"):
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(profile_dir)):
+    on_card = str(device).startswith("cuda")
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    write = tensorboard_trace_handler(profile_dir)
+    finished = []
+
+    def ready(prof):
+        if finished and on_card and not any(
+                e.device_type == DeviceType.CUDA for e in prof.events()):
+            raise RuntimeError(
+                f"torch.profiler recorded no device event in this session; no trace "
+                f"written to {profile_dir}")
+        write(prof)
+
+    with profile(activities=activities, on_trace_ready=ready):
         fn()
+        finished.append(True)
     logger.info("profiler trace written to %s", profile_dir)
 
 

@@ -321,11 +321,12 @@ def _timed(name: str, device: torch.device):
 
 
 def all_reduce(mesh: Mesh, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-    """``t`` reduced over the ranks (in place; ``op`` sum or max)."""
+    """``t`` reduced over the ranks (in place; ``op`` sum, max or min)."""
     if not mesh.distributed:
         return t
+    ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
     with _timed("all_reduce", t.device):
-        dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op])
+        dist.all_reduce(t, op=ops[op])
     return t
 
 
@@ -607,7 +608,11 @@ class _GatherRows(torch.autograd.Function):
         with _timed("gather_rows", grad.device):
             back = _all_to_all(ctx.mesh, grad, send, recv)
             out = torch.zeros(ctx.shape, dtype=grad.dtype, device=grad.device)
-            out.index_add_(0, asked, back)
+            # an accumulating index_put_ sums a row's occurrences in a fixed
+            # order, as the backward of one process's gather does; a card's
+            # index_add_ adds them with atomics in whatever order they land,
+            # and Adam can amplify the difference from run to run
+            out.index_put_((asked,), back, accumulate=True)
         return out, None, None
 
 

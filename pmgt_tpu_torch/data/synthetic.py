@@ -97,6 +97,9 @@ def _fast_edges(num_nodes, target_edges, cluster, members, rng):
     return [(int(a), int(b), float(w)) for a, b, w in zip(uu, vv, ww)]
 
 
+_NOISE_ROWS = 65_536  # rows of feature noise drawn at a time
+
+
 def make_synthetic_dataset(
     num_nodes: int,
     num_users: int,
@@ -165,12 +168,20 @@ def make_synthetic_dataset(
     graph = from_edges(num_nodes, edges)
 
     # --- features: cluster centroid + noise, rows 0/1 zeroed ------------
+    # The noise is drawn in row blocks: the generator fills them in the
+    # order one [num_nodes, dim] draw would, so the values are the same,
+    # and the host holds one block of float64 draws at a time (a whole
+    # draw is 8 bytes a feature: 31 GB at 2.5M nodes x 1536).
     feat_tables = []
     for dim in feat_dims:
         centroids = rng.normal(size=(c, dim)).astype(np.float32)
         table = np.zeros((num_nodes + NUM_SPECIAL_NODES, dim), np.float32)
-        noise = rng.normal(size=(num_nodes, dim)).astype(np.float32)
-        table[NUM_SPECIAL_NODES:] = centroids[cluster] + 0.4 * noise
+        for start in range(0, num_nodes, _NOISE_ROWS):
+            noise = rng.normal(size=(min(_NOISE_ROWS, num_nodes - start), dim))
+            noise = noise.astype(np.float32)
+            noise *= np.float32(0.4)
+            rows = slice(NUM_SPECIAL_NODES + start, NUM_SPECIAL_NODES + start + len(noise))
+            np.add(centroids[cluster[start:start + len(noise)]], noise, out=table[rows])
         feat_tables.append(table)
 
     # --- interactions: cluster-preferring users, 80/20 split ------------

@@ -61,6 +61,12 @@ class DeviceGraph(NamedTuple):
     def device(self) -> torch.device:
         return self.nbr_ids.device
 
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the tables (a sharded graph's blocks)."""
+        return sum(t.numel() * t.element_size()
+                   for t in (getattr(self, f) for f in self.tensor_fields))
+
     def rows(self, tables, ids: torch.Tensor):
         """``t[ids]`` for a per-node table ``t`` of this graph (or a tuple
         of tables indexed alike, gathered with one exchange of ids)."""

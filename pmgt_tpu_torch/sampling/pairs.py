@@ -27,9 +27,70 @@ from pmgt_tpu_torch.sampling.mcn import (
     topk_lowest_index,
 )
 
-# Node-chunk size of the whole-graph context refresh: bounds the
-# [chunk * prod(hops[:-1]), num] wavefront of the last hop.
+# The whole-graph context refresh's default node chunk, and the ceiling
+# of ``effective_refresh_chunk``: the refresh draws ``sample_context``
+# over chunks of this many nodes, which bounds its transient (see
+# ``refresh_transient_bytes``). Graphs of at most this many rows are drawn
+# in one call.
 REFRESH_CHUNK = 65_536
+# The smallest chunk ``effective_refresh_chunk`` goes down to.
+MIN_REFRESH_CHUNK = 8_192
+
+
+def refresh_transient_bytes(cfg: SamplingConfig, chunk: int) -> int:
+    """The most bytes ``sampling.mcn.sample_context`` holds at once while
+    it draws the contexts of ``chunk`` nodes, counted from its code.
+
+    With T = the draws of every hop a node (16 + 128 + 512 = 656 at hops
+    16/8/4) and L = the last hop's (512), the live set peaks at the
+    top-k sort of the scoring, where it holds per node:
+
+    - eight int64 arrays of T: the hops' draws (``all_ids``) and their
+      weights (``all_ws``), the concatenated ids and the masked weights,
+      the packed sort's values and indices, the segment ids ``sid`` and
+      the top-k sort's indices;
+    - seven float32 arrays of T: the weights ``sw``, their cumsum and
+      exclusive cumsum, the running max of segment starts, the segment
+      scores, the masked scores and the top-k sort's values;
+    - three bool arrays of T (``change``, ``first``, ``last``);
+    - the last hop's float32 uniforms, L of them.
+
+    That is 95·T + 4·L bytes a node: 64,368 at hops 16/8/4 (4.2 GB at
+    65,536 nodes). The hop draws peak lower, at 57·L + 16·(T − L) bytes
+    (the last hop's uniforms, scaled draws, slots, fractions, flat
+    indices, the three alias-table gathers, the choice and the result
+    beside the earlier hops' draws and weights), whatever the hops."""
+    draws, width = [], 1
+    for num in cfg.hop_sampling_sizes:
+        width *= num
+        draws.append(width)
+    t = sum(draws)
+    return int(chunk) * (95 * t + 4 * draws[-1])
+
+
+def effective_refresh_chunk(
+    graph: DeviceGraph, cfg: SamplingConfig, free_bytes: Optional[int] = None
+) -> int:
+    """The node chunk of the whole-graph refresh under a memory budget
+    (counterpart of ``pmgt_tpu/sampling/pairs.py:41-81``).
+
+    ``REFRESH_CHUNK`` when ``free_bytes`` is None (no budget known) or
+    when two transients of that chunk fit in it; otherwise the chunk
+    halves, in powers of two, until two fit, down to
+    ``MIN_REFRESH_CHUNK``. A larger chunk is faster (fewer launches per
+    refresh), so it shrinks only under memory pressure. The transient is
+    the port's own (``refresh_transient_bytes``); ``graph`` is taken for
+    the JAX signature's sake, since the port's sampler has one draw path.
+    Callers pass ``free_bytes``: the device memory left after the
+    persistent tables, the graph and the resident draws."""
+    del graph
+    chunk = REFRESH_CHUNK
+    if free_bytes is None:
+        return chunk
+    while (chunk > MIN_REFRESH_CHUNK
+           and 2 * refresh_transient_bytes(cfg, chunk) > free_bytes):
+        chunk //= 2
+    return chunk
 
 
 class PretrainBatch(NamedTuple):
@@ -132,16 +193,28 @@ def sample_all_contexts(
     num_total: int,
     generator: Optional[torch.Generator] = None,
     chunk: int = REFRESH_CHUNK,
+    draws: Optional[Sequence[Sequence[torch.Tensor]]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One context per node for ALL nodes → cache tables [N_total, S];
-    rows 0/1 (the special ids) are context-free. Graphs larger than
-    ``chunk`` nodes are drawn chunk by chunk to bound the wavefront."""
+    rows 0/1 (the special ids) are context-free.
+
+    The nodes are drawn in chunks of ``chunk`` (``REFRESH_CHUNK`` by
+    default, or the task's ``effective_refresh_chunk`` under a memory
+    budget), one ``sample_context`` call each, in order, from
+    ``generator``; so for a given generator the table depends on the
+    chunk only through where the chunks start. ``draws`` replaces the
+    generator: ``draws[i]`` is chunk i's per-hop uniforms (see
+    ``sample_context``), e.g. the JAX sampler's ``split(key, c)[i]``
+    draws of that chunk's rows."""
+    if chunk < 1:
+        raise ValueError(f"refresh chunk must be at least 1, got {chunk}")
     device = graph.device
     all_nodes = torch.arange(num_total, device=device)
     ids_parts, mask_parts = [], []
-    for start in range(0, num_total, chunk):
+    for i, start in enumerate(range(0, num_total, chunk)):
         ids, mask = sample_context(
-            graph, all_nodes[start : start + chunk], cfg, generator
+            graph, all_nodes[start : start + chunk], cfg, generator,
+            None if draws is None else draws[i],
         )
         ids_parts.append(ids)
         mask_parts.append(mask)

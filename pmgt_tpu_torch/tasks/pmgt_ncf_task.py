@@ -57,7 +57,7 @@ from pmgt_tpu_torch.tasks.interaction_base import (  # noqa: F401
     test,
     train,
 )
-from pmgt_tpu_torch.tasks.pmgt_task import feat_tables_dtype
+from pmgt_tpu_torch.tasks.pmgt_task import CTX_BYTES, feat_tables_dtype, refresh_budget
 
 logger = logging.getLogger("pmgt_tpu_torch")
 
@@ -124,6 +124,12 @@ class PMGTNCFTask(InteractionTaskBase):
         self.feat_tables = prepare_feat_tables(
             artifacts.feat_init_embs, feat_tables_dtype(args), self.device,
             shard=self.mesh if e.get("shard_feat_tables") else None)
+        # Resident draws a node: the epoch's contexts, the evaluation
+        # contexts and the draw in progress (the old epoch's table lives
+        # until the new one is drawn).
+        self.refresh = refresh_budget(
+            self.mesh, self.device, self.graph, self.sampling, self.feat_tables,
+            self.sampling.num_total * 3 * CTX_BYTES * self.sampling.seq_len)
         self.item_to_node = torch.as_tensor(item_to_node_map(artifacts), dtype=torch.int64,
                                             device=self.device)
         self.eval_chunk_users = max(args.test_batch_size // 64, 1)
@@ -134,7 +140,7 @@ class PMGTNCFTask(InteractionTaskBase):
 
     def _draw_ctx(self, seed: int) -> Ctx:
         return sample_all_contexts(self.graph, self.sampling, self.sampling.num_total,
-                                   seeded(seed, self.device))
+                                   seeded(seed, self.device), chunk=self.refresh["chunk"])
 
     def on_epoch_start(self, epoch: int) -> None:
         """The epoch's examples and context table (no-op if they are this

@@ -10,6 +10,12 @@ and export are then pure gathers plus encoder passes over chunks of
 ``test_batch_size`` targets, so their metrics are a function of the
 parameters alone.
 
+A draw for the whole graph goes in node chunks (``refresh_budget``): the
+full ``REFRESH_CHUNK`` unless the card's memory, less the tables, the
+graph and the resident draws, cannot hold two chunk transients, and then
+the largest power-of-two chunk that fits (``effective_refresh_chunk``),
+the smallest over the ranks.
+
 Training runs either of the JAX package's modes. Cached (the default):
 at each epoch start (``on_epoch_start``) one context per node and one
 training pair table (P = ``max_total_samples``) are drawn into a single
@@ -71,7 +77,7 @@ from pmgt_tpu_torch.core.config import (
     TrainArgs,
     resolve_fusion_strategy,
 )
-from pmgt_tpu_torch.core.device import resolve_device
+from pmgt_tpu_torch.core.device import device_memory_bytes, resolve_device
 from pmgt_tpu_torch.core.mesh import (
     all_reduce,
     all_reduce_grads,
@@ -84,15 +90,17 @@ from pmgt_tpu_torch.core.mesh import (
     rank_chunks,
     replicate,
 )
-from pmgt_tpu_torch.core.quant import prepare_feat_tables
+from pmgt_tpu_torch.core.quant import prepare_feat_tables, table_nbytes
 from pmgt_tpu_torch.data.artifacts import DatasetArtifacts, load_artifacts
 from pmgt_tpu_torch.data.split import train_test_split
 from pmgt_tpu_torch.graph.container import NUM_SPECIAL_NODES
 from pmgt_tpu_torch.metrics.ranking import roc_auc, stable_sigmoid
 from pmgt_tpu_torch.models.pmgt import PMGTForPreTraining
 from pmgt_tpu_torch.sampling.pairs import (
+    effective_refresh_chunk,
     make_pretrain_batch,
     make_pretrain_batch_cached,
+    refresh_transient_bytes,
     sample_all_contexts,
     sample_all_pairs,
 )
@@ -196,6 +204,16 @@ class PMGTTask:
             artifacts.feat_init_embs, feat_tables_dtype(args), self.device,
             shard=self.mesh if extra.get("shard_feat_tables") else None,
         )
+        # The refresh's node chunk under the card's memory budget, the
+        # same on every rank. Resident draws a node: the training slot
+        # (contexts and P pairs), valid and test (contexts and 2 pairs),
+        # inference (contexts) and the draw in progress (contexts; the old
+        # training slot lives until the new one is drawn).
+        s_len, p_len = self.sampling.seq_len, self.sampling.max_total_samples
+        self.refresh = refresh_budget(
+            self.mesh, self.device, self.graph, self.sampling, self.feat_tables,
+            self.sampling.num_total * (5 * CTX_BYTES * s_len + PAIR_BYTES * (p_len + 4)),
+        )
         # One fixed draw per phase tag, kept for the task's lifetime.
         self._phase_ctx_cache: Dict[Tuple, PhaseCtx] = {}
         # The training draw: one evicting slot, retagged each epoch.
@@ -220,7 +238,7 @@ class PMGTTask:
         gen.manual_seed(self._phase_seed(tag))
         n_total = self.sampling.num_total
         ctx_ids, ctx_mask = sample_all_contexts(
-            self.graph, self.sampling, n_total, gen
+            self.graph, self.sampling, n_total, gen, chunk=self.refresh["chunk"]
         )
         if tag[0] == "inference":  # export never consumes pairs
             pairs = None
@@ -446,6 +464,41 @@ class PMGTTask:
         if self.config.fusion_strategy != "project_tables":
             return None
         return self.model.project_tables(self.feat_tables)
+
+
+# ----------------------------------------------------------------------
+# the refresh's memory budget
+# ----------------------------------------------------------------------
+
+# Step activations, optimizer state and slack kept out of the refresh's
+# budget (the JAX tasks' figure).
+REFRESH_HEADROOM = 3 << 30
+CTX_BYTES = 12  # a context slot: an int64 id and a float32 mask
+PAIR_BYTES = 16  # a pair slot: an int64 node, float32 label and validity
+
+
+def refresh_budget(mesh, device, graph, sampling: SamplingConfig, feat_tables,
+                   cached_bytes: int) -> Dict[str, Optional[int]]:
+    """The whole-graph refresh's chunk under the device's memory
+    (``core/device.device_memory_bytes``: the card's total, or
+    ``PMGT_TORCH_HBM_BYTES``). The budget is that memory less
+    ``REFRESH_HEADROOM``, this rank's feature tables and graph tables (its
+    own blocks when they are sharded) and ``cached_bytes`` of resident
+    draws; None without a device memory (the CPU), which keeps the full
+    chunk. The chunk is the smallest of the ranks' (an all-reduce), since
+    every rank must draw the same chunks: the sharded graph's row gathers
+    and the sharded draws are collectives."""
+    capacity = device_memory_bytes(device)
+    persistent = sum(table_nbytes(t) for t in feat_tables) + graph.nbytes
+    free = (None if capacity is None
+            else max(capacity - REFRESH_HEADROOM - persistent - cached_bytes, 0))
+    chunk = effective_refresh_chunk(graph, sampling, free)
+    if mesh.distributed:
+        mine = torch.tensor([chunk], dtype=torch.int64, device=mesh.comm_device)
+        chunk = int(all_reduce(mesh, mine, "min").item())
+    return {"capacity_bytes": capacity, "persistent_bytes": persistent,
+            "cached_bytes": cached_bytes, "free_bytes": free, "chunk": chunk,
+            "transient_bytes": refresh_transient_bytes(sampling, chunk)}
 
 
 # ----------------------------------------------------------------------

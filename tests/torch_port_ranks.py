@@ -193,3 +193,86 @@ def scripted_prune(train_name: str, params: dict, prune_at: int) -> dict:
                      trial, records)
     return {"rank": mesh.rank, "record": records[0],
             "reports": None if trial is None else trial.reports}
+
+
+# ----------------------------------------------------------------------
+# tests/test_torch_port_scale.py
+# ----------------------------------------------------------------------
+
+# The 100k-node configuration of tests/test_scale_sharded.py: a tiny
+# encoder, per-step sampling (no whole-graph refresh), gather_rows.
+SCALE_DATA = dict(num_nodes=100_000, num_users=50, feat_dims=(1536, 768),
+                  interactions_per_user=2, avg_degree=8, seed=0)
+SCALE_EXTRA = dict(hidden_size=16, intermediate_size=16, num_hidden_layers=1,
+                   hop_sampling_sizes=(8, 4, 2), max_ctx_neigh=5, ctx_cache=False,
+                   fusion_strategy="gather_rows")
+# The bf16 policy on the small configuration, for the 1-vs-2-rank drift.
+DRIFT_KW = dict(mp_enabled=True, lr=1e-3)
+
+
+def drift_task(num_devices=None) -> pmgt_task.PMGTTask:
+    """The 40-node task under the bf16 policy (two steps an epoch)."""
+    args = TrainArgs(model_name="PMGT", dataset_name="syn", seed=0, num_epochs=1,
+                     train_batch_size=16, test_batch_size=16, num_devices=num_devices,
+                     extra=dict(EXTRA), **DRIFT_KW)
+    nodes = np.arange(2, 42, dtype=np.int32)
+    return pmgt_task.PMGTTask(args, make_synthetic_dataset(**DATA), nodes[:32], nodes[32:],
+                              device="cpu")
+
+
+def drift_params(num_devices=None) -> dict:
+    """The parameters after the drift task's two steps."""
+    task = drift_task(num_devices)
+    task.train_epoch(0)
+    return {k: v.detach().clone() for k, v in task.model.state_dict().items()}
+
+
+def scale_task(art, shard: bool, num_devices=None) -> pmgt_task.PMGTTask:
+    flags = {"shard_feat_tables": True, "shard_graph_tables": True} if shard else {}
+    args = TrainArgs(model_name="PMGT", dataset_name="scale", seed=0, num_epochs=1,
+                     train_batch_size=64, test_batch_size=64, lr=1e-3, mp_enabled=True,
+                     num_devices=num_devices, extra={**SCALE_EXTRA, **flags})
+    nodes = np.arange(2, art.num_nodes + 2, dtype=np.int32)
+    return pmgt_task.PMGTTask(args, art, nodes, nodes[:64], device="cpu")
+
+
+def two_steps(task) -> list:
+    batches = task.train_batches(0)
+    return [float(task.train_step(next(batches))["loss"]) for _ in range(2)]
+
+
+def scale_checks(env_by_rank: list) -> dict:
+    """In each rank: the small task with this rank's
+    ``PMGT_TORCH_HBM_BYTES`` (None: unset) and its training draw; the
+    drift task's parameters; then the 100k-node task with row-sharded and
+    with replicated tables, two steps each, and the sharded feature
+    tables' bytes on this rank."""
+    from pmgt_tpu_torch.core.device import MEMORY_ENV
+    from pmgt_tpu_torch.core.quant import ShardedTable, table_nbytes
+    from pmgt_tpu_torch.sampling.pairs import effective_refresh_chunk
+
+    rank = tmesh.current_mesh().rank
+    saved = os.environ.pop(MEMORY_ENV, None)
+    if env_by_rank[rank] is not None:
+        os.environ[MEMORY_ENV] = str(env_by_rank[rank])
+    try:
+        task = small_task()
+    finally:
+        os.environ.pop(MEMORY_ENV, None)
+        if saved is not None:
+            os.environ[MEMORY_ENV] = saved
+    ids, mask, _ = task._get_ctx(("train", 0))
+    out = {"rank": rank, "refresh": task.refresh,
+           "own_chunk": effective_refresh_chunk(task.graph, task.sampling,
+                                                task.refresh["free_bytes"]),
+           "train_ctx": (ids.clone(), mask.clone()), "drift_params": drift_params()}
+    art = make_synthetic_dataset(**SCALE_DATA)
+    sharded = scale_task(art, True)
+    assert all(isinstance(t, ShardedTable) for t in sharded.feat_tables)
+    out["feat_rank_bytes"] = sum(table_nbytes(t) for t in sharded.feat_tables)
+    out["feat_rows_rank"] = [int(t.local.shape[0]) for t in sharded.feat_tables]
+    out["fusion"] = sharded.config.fusion_strategy
+    out["sharded_losses"] = two_steps(sharded)
+    del sharded
+    out["replicated_losses"] = two_steps(scale_task(art, False))
+    return out
