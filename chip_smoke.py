@@ -10,6 +10,13 @@ the training path, and checks what comes out.
                                           # hp-tuning command at 2 and 4 NCCL
                                           # ranks, a card each, and 2.5M nodes
                                           # sharded over 4 (all when none named)
+    python3 chip_smoke.py --quality VG|TG [seed ...]
+                                          # one card: validate_pipeline at the
+                                          # published shape, 8 + 12 epochs,
+                                          # downstream seeds 0 1 2 (or those
+                                          # named) on one export, held against
+                                          # QUALITY_<S>.json
+    python3 chip_smoke.py --quality int8  # int8 against bf16 tables, 8 epochs
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -258,7 +265,20 @@ Phases (any failure raises and the script exits non-zero):
     and rate; ``--multi-card scale`` the 2,500,000 nodes row-sharded over 4
     NCCL ranks against one card: each rank's tables the total over 4 up to
     the block's padding, one chunk on every rank, losses within rtol 2e-4.
-K1 and K2 are also checked (phases 2 and 5) at the PMGT search space's
+23. End-to-end quality (run before 21): ``tools/validate_pipeline`` at
+    the VG shape (7,252 nodes, 27,988 users, 98,278 interactions, signal
+    0.6) with 1 PMGT epoch (the default model, bf16 policy, batch 256,
+    test batch 512) and 1 epoch of NeuMF-end with and without the export,
+    GMF, MLP, NeuMF-pre and DCN with and without it: every metric finite,
+    AUC/N@k/R@k in [0, 1] and losses at least 0; K2 = 5 a PMGT step and K1
+    = 5 a step, an evaluation chunk and an export chunk, exactly (the
+    downstream families launch no kernel); the export [7,252, 128] and
+    finite. Then ``tools/reproduce_published --fixture`` on
+    tests/fixtures/ref_mini: every stage ``ok``. ``--quality`` writes the
+    full records (``outputs/QUALITY_TORCH_*.json``).
+K1 and K2 are also checked (phases 2 and 5) at the quality tools' PMGT
+shapes, bf16 at d = 128: K1 at N = 3,072, 1,536 and 512 with and without
+keep masks, K2 at N = 3,072 with keep masks. And at the PMGT search space's
 shapes: bf16, S = 6, N = 384, keep masks, at d = 64 and at d = 32 with β =
 0, 0.25 and 1; at β = 0 K2's dc must be exactly 0 on both sides.
 
@@ -3667,19 +3687,16 @@ def scale_capacity(art, dtype: str, steps: int = 3) -> dict:
     return out
 
 
-def scale_main() -> int:
-    """``python3 chip_smoke.py --scale``: the scale smoke at 100,000 and
-    1,000,000 nodes (a warm-up epoch and 3 measured epochs each), then
-    2,500,000 nodes with bf16 and with int8 feature tables (one refresh
-    and 3 steps each), all on one card."""
+def one_card_setup():
+    """What a one-card mode does first: the repository on the path, a card
+    or None, TF32 off, the card's name and power limit printed (and
+    returned), the kernels built."""
     sys.path.insert(0, HERE)
-    import gc
-
     import torch
 
     if not torch.cuda.is_available():
         print("no CUDA device: the port's kernels need a GPU", file=sys.stderr)
-        return 1
+        return None
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3687,9 +3704,25 @@ def scale_main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     from pmgt_tpu_torch.ops import build
-    from pmgt_tpu_torch.tools import scale_smoke as ss
 
     build.build_all()
+    return smi
+
+
+def scale_main() -> int:
+    """``python3 chip_smoke.py --scale``: the scale smoke at 100,000 and
+    1,000,000 nodes (a warm-up epoch and 3 measured epochs each), then
+    2,500,000 nodes with bf16 and with int8 feature tables (one refresh
+    and 3 steps each), all on one card."""
+    smi = one_card_setup()
+    if smi is None:
+        return 1
+    import gc
+
+    import torch
+
+    from pmgt_tpu_torch.tools import scale_smoke as ss
+
     ok = True
     for n in (100_000, 1_000_000):
         torch.cuda.reset_peak_memory_stats()
@@ -3864,6 +3897,202 @@ def run_profile_sessions(root: str) -> dict:
     return row
 
 
+# ----------------------------------------------------------------------
+# 23. end-to-end quality: tools/validate_pipeline, the int8 tables and the
+# reproduction chain (``--quality`` for the full records)
+# ----------------------------------------------------------------------
+QUALITY_SEEDS = (0, 1, 2)  # downstream seeds of a record, on one export
+QUALITY_K1_LANES = (3072, 1536, 512)  # PMGT stage: step, evaluation chunk, export chunk
+QUALITY_FAMILIES = "neumf,dcn,gmf,mlp,neumf_pre"  # pmgt_ncf is opt-in
+
+
+def pmgt_stage_launches(num_nodes: int, epochs: int, valid_size: float = 0.1, batch: int = 256,
+                        test_batch: int = 512, layers: int = 5) -> dict:
+    """K1/K2 of ``validate_pipeline``'s PMGT stage, from the code: K2 =
+    L a step; K1 = L a step, L an evaluation chunk (one evaluation an
+    epoch; the stage exports instead of testing) and L an export chunk."""
+    from pmgt_tpu_torch.graph.container import NUM_SPECIAL_NODES
+    from pmgt_tpu_torch.tasks.pmgt_task import train_valid_split
+
+    nodes = np.arange(NUM_SPECIAL_NODES, num_nodes + NUM_SPECIAL_NODES)
+    train_nodes, valid_nodes = train_valid_split(nodes, valid_size, 0)
+    steps = epochs * (len(train_nodes) // batch)
+    eval_chunks = math.ceil(len(valid_nodes) / test_batch)
+    export_chunks = math.ceil(num_nodes / test_batch)
+    return {"k1": layers * (steps + eval_chunks * epochs + export_chunks),
+            "k2": layers * steps, "k3": 0, "k4": 0, "steps": steps,
+            "eval_chunks": eval_chunks, "export_chunks": export_chunks}
+
+
+def metrics_in_range(results: dict) -> dict:
+    """Every stage's metrics finite; AUC, N@k and R@k in [0, 1], the BCE
+    losses at least 0."""
+    bad = {}
+    for stage, metrics in results.items():
+        if stage in ("provenance", "signal"):
+            continue
+        for name, v in metrics.items():
+            lo, hi = (0.0, math.inf) if name.endswith("loss") else (0.0, 1.0)
+            if not (math.isfinite(v) and lo <= v <= hi):
+                bad[f"{stage} {name}"] = v
+    return bad
+
+
+def run_quality(root: str) -> dict:
+    """The ``quality`` phase: ``tools/validate_pipeline`` at the VG shape
+    (7,252 nodes, 27,988 users, signal 0.6) for 1 PMGT epoch and 1 epoch of
+    each downstream family but PMGT_NCF, then ``tools/reproduce_published
+    --fixture``. Every metric finite and in range, K1/K2 exactly the PMGT
+    stage's (the downstream families launch none), the export [7,252, 128]
+    and finite, every reproduction stage ``ok``. The comparison with
+    ``QUALITY_VG.json`` is printed, not held: 1 + 1 epochs are not the
+    record's 8 + 12."""
+    from pmgt_tpu_torch.data.synthetic import PUBLISHED_SHAPES
+    from pmgt_tpu_torch.tools import reproduce_published as rp
+    from pmgt_tpu_torch.tools import validate_pipeline as vp
+
+    out = os.path.join(root, "vg")
+    zero_launches()
+    (_, vp_ms) = timed(lambda: vp.main(["--shape", "VG", "--pmgt-epochs", "1",
+                                        "--downstream-epochs", "1", "--families",
+                                        QUALITY_FAMILIES, "--out", out, "--device", "cuda"]))
+    launches = read_launches()
+    with open(os.path.join(out, "results.json")) as f:
+        results = json.load(f)
+    n_nodes = PUBLISHED_SHAPES["VG"]["num_nodes"]
+    want = pmgt_stage_launches(n_nodes, 1)
+    emb = np.load(os.path.join(out, "node_feat_128dim.npy"))
+    comparison = vp.compare_to_jax([results], vp.jax_record("VG"), results["pmgt"])
+
+    zero_launches()
+    (rp_rc, rp_ms) = timed(lambda: rp.main(["--fixture", "--device", "cuda",
+                                            "--work-dir", os.path.join(root, "repro"),
+                                            "--report", os.path.join(root, "REPRODUCE_TORCH_fixture.json")]))
+    rp_launches = read_launches()
+    with open(os.path.join(root, "REPRODUCE_TORCH_fixture.json")) as f:
+        report = json.load(f)
+    stages = {e["stage"]: e["status"] for e in report["stages"]}
+    bad = metrics_in_range(results)
+    checks = {
+        "every_stage_ran": set(results) >= {"pmgt", "ncf_plain", "ncf_pmgt", "gmf", "mlp",
+                                            "neumf_pre", "dcn_plain", "dcn_pmgt"},
+        "metrics_finite_in_range": not bad,
+        "launches_exact": launches == {k: want[k] for k in ("k1", "k2", "k3", "k4")},
+        "export_shape_finite": emb.shape == (n_nodes, 128) and bool(np.isfinite(emb).all()),
+        "reproduce_fixture_ok": rp_rc == 0 and set(stages.values()) == {"ok"},
+        "reproduce_kernels_ran": rp_launches["k1"] > 0 and rp_launches["k2"] > 0,
+    }
+    row = {"phase": "quality", "validate_pipeline_s": vp_ms / 1e3, "results": results,
+           "out_of_range": bad, "launches": launches, "expected_launches": want,
+           "export_shape": list(emb.shape), "comparison_1_epoch": comparison,
+           "reproduce_s": rp_ms / 1e3, "reproduce_stages": stages,
+           "reproduce_launches": rp_launches, "checks": checks, "ok": all(checks.values())}
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"the quality phase failed: {checks}")
+    return row
+
+
+def run_seeds(shape: str, emb_path: str, seeds, root: str, threads: int = 2) -> dict:
+    """``validate_pipeline --shape <shape> --emb-path <emb_path>`` for each
+    downstream seed, all at once as processes of their own on the one card
+    (each host bound, the card mostly idle); {seed: results} and each
+    one's wall seconds. Every process is stopped before this returns."""
+    env = dict(os.environ, OMP_NUM_THREADS=str(threads), MKL_NUM_THREADS=str(threads))
+    procs, out = [], {}
+    try:
+        for k in seeds:
+            d = os.path.join(root, f"seed{k}")
+            os.makedirs(d, exist_ok=True)
+            log = open(os.path.join(d, "log.txt"), "w")
+            argv = [sys.executable, "-m", "pmgt_tpu_torch.tools.validate_pipeline", "--shape",
+                    shape, "--emb-path", emb_path, "--downstream-seed", str(k), "--out", d,
+                    "--device", "cuda"]
+            procs.append((k, d, log, time.perf_counter(),
+                          subprocess.Popen(argv, cwd=HERE, env=env, stdout=log,
+                                           stderr=subprocess.STDOUT)))
+        for k, d, log, t0, p in procs:
+            rc = p.wait()
+            log.close()
+            if rc != 0:
+                with open(os.path.join(d, "log.txt")) as f:
+                    tail = f.read()[-3000:]
+                raise RuntimeError(f"downstream seed {k} failed (rc {rc}):\n{tail}")
+            with open(os.path.join(d, "results.json")) as f:
+                out[k] = json.load(f)
+            emit({"phase": "quality_seed", "shape": shape, "seed": k,
+                  "wall_s": time.perf_counter() - t0})
+    finally:
+        for *_, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def quality_main(argv) -> int:
+    """``--quality VG|TG [seed ...]``: PMGT pre-training at seed 0 for 8
+    epochs and its export (unless ``outputs/quality_torch_<S>/pretrain``
+    already holds them), then the downstream families for 12 epochs at each
+    seed (default 0, 1, 2, in parallel processes), gathered with any seed
+    already under that directory into ``outputs/QUALITY_TORCH_<S>.json``
+    with the comparison against ``QUALITY_<S>.json``. ``--quality int8``:
+    ``tools/quality_int8_tables`` at its defaults (10,834 nodes, 8 epochs,
+    batch 512) into ``outputs/QUALITY_TORCH_INT8_TG.json``. Exits 0 when
+    every run completed; the comparison's verdict is in the record."""
+    if one_card_setup() is None:
+        return 1
+    import torch
+
+    from pmgt_tpu_torch.tools import validate_pipeline as vp
+
+    outputs = os.path.join(HERE, "outputs")
+    mode = argv[0]
+    if mode == "int8":
+        from pmgt_tpu_torch.tools import quality_int8_tables as q8
+
+        art = q8.make_dataset(10834)
+        zero_launches()
+        variants = [q8.run(art, d, 8, 512, "cuda") for d in ("bfloat16", "int8")]
+        record = {"what": "TG-shape (10,834 nodes, 1536+768 feats, paper config) PMGT pretrain: "
+                          "int8 vs bfloat16 feature tables, same seed, 8 epochs, one card",
+                  "tool": "pmgt_tpu_torch/tools/quality_int8_tables.py --epochs 8",
+                  "provenance": vp.provenance(sys.argv[1:]), "variants": variants,
+                  "verdict": q8.verdict(*variants), "launches": read_launches(),
+                  "jax_record": "QUALITY_INT8_TG.json"}
+        name = "QUALITY_TORCH_INT8_TG.json"
+    else:
+        shape, seeds = mode, tuple(int(a) for a in argv[1:]) or QUALITY_SEEDS
+        root = os.path.join(outputs, f"quality_torch_{shape}")
+        pre = os.path.join(root, "pretrain")
+        emb_path = os.path.join(pre, "node_feat_128dim.npy")
+        if not (os.path.exists(emb_path) and os.path.exists(os.path.join(pre, "results.json"))):
+            zero_launches()
+            (_, ms) = timed(lambda: vp.main(["--shape", shape, "--families", "", "--out", pre,
+                                             "--device", "cuda"]))
+            emit({"phase": "quality_pretrain", "shape": shape, "s": ms / 1e3,
+                  "launches": read_launches()})
+        with open(os.path.join(pre, "results.json")) as f:
+            pmgt = json.load(f)["pmgt"]
+        run_seeds(shape, emb_path, seeds, root)
+        done = {}
+        for name in sorted(os.listdir(root)):
+            path = os.path.join(root, name, "results.json")
+            if name.startswith("seed") and os.path.exists(path):
+                with open(path) as f:
+                    done[int(name[4:])] = json.load(f)
+        record = vp.quality_record(shape, done, vp.provenance(sys.argv[1:]), pmgt)
+        name = f"QUALITY_TORCH_{shape}.json"
+    record["command_s"] = time.perf_counter() - T_START
+    with open(os.path.join(outputs, name), "w") as f:
+        json.dump(record, f, indent=1)
+    emit({"phase": "quality_record", "file": f"outputs/{name}",
+          "verdict": record.get("verdict") or record["comparison"]})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "pmgt_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository",
@@ -3918,6 +4147,10 @@ def main() -> int:
     # d = 64, and d = 32 with β = 0 (no cosine branch), 0.25 and 1
     tuning = [(64, 0.5), (32, 0.0), (32, 0.25), (32, 1.0)]
     checks += [check_k1(6, 384, d, torch.bfloat16, True, beta) for d, beta in tuning]
+    # bf16 at the quality tools' PMGT stage (batch 256, test batch 512):
+    # training, evaluation and export lanes
+    checks += [check_k1(6, n, 128, torch.bfloat16, km) for n in QUALITY_K1_LANES
+               for km in (False, True)]
     results["k1_checks"] = checks
 
     # ---- 5. K2 against its plain version (N=256: PMGT_NCF's training step)
@@ -3928,6 +4161,7 @@ def main() -> int:
     k2_bf16 = [check_k2(6, 384, 32, km, torch.bfloat16) for km in (False, True)]
     k2_bf16.append(check_k2(6, 128, 128, True, torch.bfloat16))
     k2_bf16 += [check_k2(6, 384, d, True, torch.bfloat16, beta) for d, beta in tuning]
+    k2_bf16.append(check_k2(6, 3072, 128, True, torch.bfloat16))  # the quality tools' step
     results["k2_checks"] = k2_checks + k2_bf16
 
     # ---- 5b. untimed sweep of all four kernels over edge shapes ---------
@@ -4085,6 +4319,11 @@ def main() -> int:
     scale = run_scale()
     clock("scale")
 
+    # ---- 23. end-to-end quality: validate_pipeline at the VG shape (1 + 1
+    # epochs) and the reproduction chain on the fixture
+    quality = run_quality(os.path.join(HERE, "outputs", "chip_smoke_quality"))
+    clock("quality")
+
     # ---- 21. data parallelism: one NCCL rank; two gloo ranks sharing the
     # card (train-pmgt replicated and sharded, NCF, DCN, PMGT_NCF, then
     # hp-tuning studies on phase 17's data)
@@ -4134,6 +4373,8 @@ def main() -> int:
           "hpo_pmgt_trials": hpo_launches["k1"],
           "hpo_ncf_exports": export_launches["k1"],
           "scale": scale["launches"]["k1"],
+          "quality_vg": quality["launches"]["k1"],
+          "reproduce_fixture": quality["reproduce_launches"]["k1"],
           "multi_rank": multi["launches"]["k1"]}),
         ("dual_attention_bwd_sm", K2_SOURCE, K2_REPLACES, pick(k2_checks, 3072), k2_checks,
          {"serving": kern["row"]["k2_launches"], "training": train["k2_launches"],
@@ -4149,6 +4390,8 @@ def main() -> int:
           "hpo_pmgt_trials": hpo_launches["k2"],
           "hpo_ncf_exports": export_launches["k2"],
           "scale": scale["launches"]["k2"],
+          "quality_vg": quality["launches"]["k2"],
+          "reproduce_fixture": quality["reproduce_launches"]["k2"],
           "multi_rank": multi["launches"]["k2"]}),
         ("dual_attention_fwd_bm", K1_SOURCE, K3_REPLACES, pick(k3_checks, 3072),
          [r for r in k3_checks if r["dtype"] == "float32"],
@@ -4197,7 +4440,7 @@ def main() -> int:
                    multi_rank=multi["lines"], multi_rank_summary=multi["summary"],
                    multi_rank_studies=multi["studies"], feature_extraction=fx_row,
                    preprocess=pre["row"], hpo_pmgt=hpo_pmgt, hpo_ncf=hpo_ncf,
-                   scale=scale["row"], scale_routes=scale["routes"],
+                   scale=scale["row"], scale_routes=scale["routes"], quality=quality,
                    profile_sessions=prof_sessions,
                    command_s=time.perf_counter() - T_START)
     emit({"phase": "command_time", "seconds": results["command_s"]})
@@ -4219,9 +4462,14 @@ def cli() -> int:
         return multi_card_main(tuple(argv[1:]) or MULTI_CARD_JOBS)
     if argv == ["--scale"]:
         return scale_main()
+    if (argv[:1] == ["--quality"] and len(argv) >= 2
+            and (argv[1:] == ["int8"] or argv[1] in ("VG", "TG")
+                 and all(a.isdigit() for a in argv[2:]))):
+        return quality_main(argv[1:])
     if argv:
-        print(f"unknown arguments {argv}: none, --scale, or --multi-card "
-              f"[{'] ['.join(MULTI_CARD_JOBS)}]", file=sys.stderr)
+        print(f"unknown arguments {argv}: none, --scale, --quality VG|TG [seed ...], "
+              f"--quality int8, or --multi-card [{'] ['.join(MULTI_CARD_JOBS)}]",
+              file=sys.stderr)
         return 2
     return main()
 

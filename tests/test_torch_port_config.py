@@ -129,7 +129,9 @@ def test_port_sources_import_no_jax_and_no_pmgt_tpu():
                 "train/checkpoints.py", "train/registry.py", "cli/hpo.py",
                 "cli/space_yaml.py", "data/preprocess.py", "data/ingest.py",
                 "native/__init__.py", "core/mesh.py", "data/feature_extraction.py",
-                "utils/base.py", "tools/__init__.py", "tools/scale_smoke.py"):
+                "utils/base.py", "tools/__init__.py", "tools/scale_smoke.py",
+                "tools/validate_pipeline.py", "tools/quality_int8_tables.py",
+                "tools/reproduce_published.py"):
         assert os.path.join(ROOT, "pmgt_tpu_torch", new) in files
     bad, tried = [], set()
     for p in files:
