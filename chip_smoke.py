@@ -16,7 +16,18 @@ the training path, and checks what comes out.
                                           # downstream seeds 0 1 2 (or those
                                           # named) on one export, held against
                                           # QUALITY_<S>.json
+    python3 chip_smoke.py --quality TG pmgt_ncf [seed ...]
+                                          # the same with PMGT_NCF as the one
+                                          # family, against
+                                          # QUALITY_TG_PMGT_NCF.json
     python3 chip_smoke.py --quality int8  # int8 against bf16 tables, 8 epochs
+    python3 chip_smoke.py --evidence dcn|dcn-frozen|neumf-pre|hpo-mlp|hpo-pmgt
+                                          # one card: an evidence tool at its
+                                          # published protocol, held against
+                                          # the JAX record (``EVIDENCE``)
+    python3 chip_smoke.py --bisect dcn-frozen|neumf-pre SEED
+                                          # where a record missed a bound:
+                                          # the spread it does not see
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -276,6 +287,19 @@ Phases (any failure raises and the script exits non-zero):
     finite. Then ``tools/reproduce_published --fixture`` on
     tests/fixtures/ref_mini: every stage ``ok``. ``--quality`` writes the
     full records (``outputs/QUALITY_TORCH_*.json``).
+24. The evidence tools (run before 21), all five at once: ``tools/
+    dcn_sensitivity`` on phase 23's VG export (1 seed, 1 epoch) without
+    and with ``--freeze``, ``tools/neumf_pre_bisect`` at its small default
+    size (2 epochs, ladder 1e-3, 1e-4:2), and ``tools/hpo_tg_study`` and
+    ``tools/hpo_pmgt_study`` with one trial of one epoch and one
+    ``hp-tuning`` round on a 2,000-node TG-layout dataset. Every report
+    has the JAX tool's keys with finite numbers; the frozen ``zero`` arm's
+    AUC is exactly 0.5; each restored best checkpoint equals its trial's
+    logged results within 1e-5; K1/K2 of every PMGT process (pre-training
+    and export at d = 32, 64, 128; each trial at its d and β; the
+    restore) exactly as the code predicts. ``--evidence`` writes the full
+    records (``outputs/DCN_SENSITIVITY_TORCH_*.json``,
+    ``QUALITY_TORCH_NEUMF_PRE_BISECT_TG.json``, ``HPO_TORCH_TG_*.json``).
 K1 and K2 are also checked (phases 2 and 5) at the quality tools' PMGT
 shapes, bf16 at d = 128: K1 at N = 3,072, 1,536 and 512 with and without
 keep masks, K2 at N = 3,072 with keep masks. And at the PMGT search space's
@@ -3172,10 +3196,10 @@ def pmgt_trial_launches(num_nodes: int, cfg: dict, layers: int) -> dict:
     """K1 / K2 of one PMGT trial on each rank: L a step; K1 also L an
     evaluation chunk, over the epoch's validation and the HPO test (both
     on the validation split)."""
-    n_valid = math.ceil(cfg["valid_size"] * num_nodes)
-    steps = (num_nodes - n_valid) // cfg["train_batch_size"]
-    chunks = math.ceil(n_valid / cfg["test_batch_size"])
-    return {"k1": layers * (steps + 2 * chunks), "k2": layers * steps, "k3": 0, "k4": 0}
+    from pmgt_tpu_torch.tools.hpo_tg_study import pmgt_run_launches
+
+    return pmgt_run_launches(num_nodes, cfg["valid_size"], cfg["train_batch_size"],
+                             cfg["test_batch_size"], layers, 1)
 
 
 class Replay:
@@ -3911,17 +3935,10 @@ def pmgt_stage_launches(num_nodes: int, epochs: int, valid_size: float = 0.1, ba
     """K1/K2 of ``validate_pipeline``'s PMGT stage, from the code: K2 =
     L a step; K1 = L a step, L an evaluation chunk (one evaluation an
     epoch; the stage exports instead of testing) and L an export chunk."""
-    from pmgt_tpu_torch.graph.container import NUM_SPECIAL_NODES
-    from pmgt_tpu_torch.tasks.pmgt_task import train_valid_split
+    from pmgt_tpu_torch.tools.hpo_tg_study import pmgt_run_launches
 
-    nodes = np.arange(NUM_SPECIAL_NODES, num_nodes + NUM_SPECIAL_NODES)
-    train_nodes, valid_nodes = train_valid_split(nodes, valid_size, 0)
-    steps = epochs * (len(train_nodes) // batch)
-    eval_chunks = math.ceil(len(valid_nodes) / test_batch)
-    export_chunks = math.ceil(num_nodes / test_batch)
-    return {"k1": layers * (steps + eval_chunks * epochs + export_chunks),
-            "k2": layers * steps, "k3": 0, "k4": 0, "steps": steps,
-            "eval_chunks": eval_chunks, "export_chunks": export_chunks}
+    return pmgt_run_launches(num_nodes, valid_size, batch, test_batch, layers, epochs, tests=0,
+                             export_batch=test_batch)
 
 
 def metrics_in_range(results: dict) -> dict:
@@ -3977,7 +3994,7 @@ def run_quality(root: str) -> dict:
         "every_stage_ran": set(results) >= {"pmgt", "ncf_plain", "ncf_pmgt", "gmf", "mlp",
                                             "neumf_pre", "dcn_plain", "dcn_pmgt"},
         "metrics_finite_in_range": not bad,
-        "launches_exact": launches == {k: want[k] for k in ("k1", "k2", "k3", "k4")},
+        "launches_exact": launches == want,
         "export_shape_finite": emb.shape == (n_nodes, 128) and bool(np.isfinite(emb).all()),
         "reproduce_fixture_ok": rp_rc == 0 and set(stages.values()) == {"ok"},
         "reproduce_kernels_ran": rp_launches["k1"] > 0 and rp_launches["k2"] > 0,
@@ -3993,11 +4010,13 @@ def run_quality(root: str) -> dict:
     return row
 
 
-def run_seeds(shape: str, emb_path: str, seeds, root: str, threads: int = 2) -> dict:
-    """``validate_pipeline --shape <shape> --emb-path <emb_path>`` for each
-    downstream seed, all at once as processes of their own on the one card
-    (each host bound, the card mostly idle); {seed: results} and each
-    one's wall seconds. Every process is stopped before this returns."""
+def run_seeds(shape: str, emb_path: str, seeds, root: str, threads: int = 2,
+              families: str = QUALITY_FAMILIES) -> dict:
+    """``validate_pipeline --shape <shape> --emb-path <emb_path> --families
+    <families>`` for each downstream seed, all at once as processes of
+    their own on the one card (each host bound, the card mostly idle);
+    {seed: results} and each one's wall seconds. Every process is stopped
+    before this returns."""
     env = dict(os.environ, OMP_NUM_THREADS=str(threads), MKL_NUM_THREADS=str(threads))
     procs, out = [], {}
     try:
@@ -4007,7 +4026,7 @@ def run_seeds(shape: str, emb_path: str, seeds, root: str, threads: int = 2) -> 
             log = open(os.path.join(d, "log.txt"), "w")
             argv = [sys.executable, "-m", "pmgt_tpu_torch.tools.validate_pipeline", "--shape",
                     shape, "--emb-path", emb_path, "--downstream-seed", str(k), "--out", d,
-                    "--device", "cuda"]
+                    "--families", families, "--device", "cuda"]
             procs.append((k, d, log, time.perf_counter(),
                           subprocess.Popen(argv, cwd=HERE, env=env, stdout=log,
                                            stderr=subprocess.STDOUT)))
@@ -4036,7 +4055,12 @@ def quality_main(argv) -> int:
     already holds them), then the downstream families for 12 epochs at each
     seed (default 0, 1, 2, in parallel processes), gathered with any seed
     already under that directory into ``outputs/QUALITY_TORCH_<S>.json``
-    with the comparison against ``QUALITY_<S>.json``. ``--quality int8``:
+    with the comparison against ``QUALITY_<S>.json``. ``--quality TG
+    pmgt_ncf [seed ...]``: the same with PMGT_NCF as the one family (it
+    trains its own encoder; the pre-training gives the record its PMGT
+    row, as the JAX record has one) under ``outputs/quality_torch_TG_pmgt_ncf``,
+    into ``outputs/QUALITY_TORCH_TG_PMGT_NCF.json`` against
+    ``QUALITY_TG_PMGT_NCF.json``. ``--quality int8``:
     ``tools/quality_int8_tables`` at its defaults (10,834 nodes, 8 epochs,
     batch 512) into ``outputs/QUALITY_TORCH_INT8_TG.json``. Exits 0 when
     every run completed; the comparison's verdict is in the record."""
@@ -4062,8 +4086,11 @@ def quality_main(argv) -> int:
                   "jax_record": "QUALITY_INT8_TG.json"}
         name = "QUALITY_TORCH_INT8_TG.json"
     else:
-        shape, seeds = mode, tuple(int(a) for a in argv[1:]) or QUALITY_SEEDS
-        root = os.path.join(outputs, f"quality_torch_{shape}")
+        pmgt_ncf = argv[1:2] == ["pmgt_ncf"]
+        rest = argv[2:] if pmgt_ncf else argv[1:]
+        shape, seeds = mode, tuple(int(a) for a in rest) or QUALITY_SEEDS
+        suffix = "_pmgt_ncf" if pmgt_ncf else ""
+        root = os.path.join(outputs, f"quality_torch_{shape}{suffix}")
         pre = os.path.join(root, "pretrain")
         emb_path = os.path.join(pre, "node_feat_128dim.npy")
         if not (os.path.exists(emb_path) and os.path.exists(os.path.join(pre, "results.json"))):
@@ -4074,20 +4101,292 @@ def quality_main(argv) -> int:
                   "launches": read_launches()})
         with open(os.path.join(pre, "results.json")) as f:
             pmgt = json.load(f)["pmgt"]
-        run_seeds(shape, emb_path, seeds, root)
+        run_seeds(shape, emb_path, seeds, root,
+                  families="pmgt_ncf" if pmgt_ncf else QUALITY_FAMILIES)
         done = {}
         for name in sorted(os.listdir(root)):
             path = os.path.join(root, name, "results.json")
             if name.startswith("seed") and os.path.exists(path):
                 with open(path) as f:
                     done[int(name[4:])] = json.load(f)
-        record = vp.quality_record(shape, done, vp.provenance(sys.argv[1:]), pmgt)
-        name = f"QUALITY_TORCH_{shape}.json"
+        jax_name = f"QUALITY_{shape}{suffix.upper()}.json"
+        record = vp.quality_record(shape, done, vp.provenance(sys.argv[1:]), pmgt,
+                                   jax_name=jax_name)
+        name = f"QUALITY_TORCH_{shape}{suffix.upper()}.json"
     record["command_s"] = time.perf_counter() - T_START
     with open(os.path.join(outputs, name), "w") as f:
         json.dump(record, f, indent=1)
     emit({"phase": "quality_record", "file": f"outputs/{name}",
           "verdict": record.get("verdict") or record["comparison"]})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+# ----------------------------------------------------------------------
+# 24. the evidence tools: dcn_sensitivity, neumf_pre_bisect, hpo_tg_study
+# and hpo_pmgt_study (``--evidence`` for the full records)
+# ----------------------------------------------------------------------
+EVIDENCE_DATA = dict(num_nodes=2000, num_users=1500)  # the HPO studies' small TG layout
+EVIDENCE = {  # mode: (tool, record, JAX record)
+    "dcn": ("dcn_sensitivity", "DCN_SENSITIVITY_TORCH_TG.json", "DCN_SENSITIVITY_TG.json"),
+    "dcn-frozen": ("dcn_sensitivity", "DCN_SENSITIVITY_TORCH_TG_FROZEN.json",
+                   "DCN_SENSITIVITY_TG_FROZEN.json"),
+    "neumf-pre": ("neumf_pre_bisect", "QUALITY_TORCH_NEUMF_PRE_BISECT_TG.json",
+                  "QUALITY_NEUMF_PRE_BISECT_TG.json"),
+    "hpo-mlp": ("hpo_tg_study", "HPO_TORCH_TG_MLP_PMGT.json", "HPO_TG_MLP_PMGT.json"),
+    "hpo-pmgt": ("hpo_pmgt_study", "HPO_TORCH_TG_PMGT.json", "HPO_TG_PMGT.json"),
+}
+NCF_KEYS = {"lr", "test/loss", "test/n10", "test/r10", "test/n20", "test/r20"}
+
+
+def numbers_finite(obj) -> bool:
+    """Every number in ``obj`` (nested dicts and lists) finite."""
+    if isinstance(obj, dict):
+        return all(numbers_finite(v) for v in obj.values())
+    if isinstance(obj, list):
+        return all(numbers_finite(v) for v in obj)
+    return not isinstance(obj, float) or math.isfinite(obj)
+
+
+def jax_record(mode: str) -> dict:
+    with open(os.path.join(HERE, EVIDENCE[mode][2])) as f:
+        return json.load(f)
+
+
+def jax_keys(mode: str, report: dict) -> bool:
+    """``report`` has the keys the JAX tool writes, with finite numbers."""
+    if mode == "neumf-pre":  # the tool's dict: an entry an arm
+        have = report["full"]
+        ok = ({"gmf", "mlp", "neumf_pre_init_only"} <= set(have)
+              and all(set(v) == NCF_KEYS for v in have.values()))
+    else:  # less what was added to the JAX record by hand
+        ok = set(jax_record(mode)) - {"pruning_note"} <= set(report)
+    return ok and numbers_finite(report)
+
+
+def restore_ok(report: dict) -> bool:
+    """A study's best checkpoint, restored in the tool's process, equal to
+    its trial's logged results within 1e-5."""
+    from pmgt_tpu_torch.tools import hpo_tg_study as htg
+
+    logged = report["trial_records"][str(report["best"]["number"])]["results"]
+    return htg.restore_check(logged, report["restore_in_process"]["results"])["ok"]
+
+
+def hpo_launch_checks(tg: dict, pm: dict) -> dict:
+    """The PMGT stages of both studies: each process's K1–K4 exactly as
+    the code predicts (hpo_tg_study's pre-training and export at d = 32,
+    64, 128; each PMGT trial at its d and β; the restore)."""
+    stages = [s for s in tg["stages"] if s["stage"].startswith("pretrain_h")]
+    trials = list(pm["trial_records"].values())
+    return {
+        "pretrain_stages_exact": len(stages) == 3
+        and all(s["launches"] == s["expected_launches"] for s in stages),
+        "pmgt_trials_exact": bool(trials)
+        and all(r["launches"] == r["expected_launches"] for r in trials),
+        "pmgt_restore_exact": pm["restore_in_process"]["launches"]
+        == pm["restore_expected_launches"],
+        "kernels_ran": all(s["launches"]["train"]["k2"] > 0 for s in stages)
+        and all(r["launches"]["k1"] > 0 and r["launches"]["k2"] > 0 for r in trials),
+    }
+
+
+def hpo_launches(tg: dict, pm: dict) -> dict:
+    """K1/K2 the two studies' processes launched, summed."""
+    rows = [s["launches"][k] for s in tg["stages"] if s["stage"].startswith("pretrain_h")
+            for k in ("train", "export")]
+    rows += [r["launches"] for r in pm["trial_records"].values()]
+    rows.append(pm["restore_in_process"]["launches"])
+    return {k: sum(r[k] for r in rows) for k in ("k1", "k2")}
+
+
+def write_small_tg(path: str) -> None:
+    """A small dataset of TG's layout (feature widths 1536/768) at ``path``."""
+    from pmgt_tpu_torch.data.artifacts import save_native
+    from pmgt_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    save_native(path, make_synthetic_dataset(**EVIDENCE_DATA, seed=42))
+
+
+def run_evidence(root: str, vg_emb: str) -> dict:
+    """The ``evidence`` phase, each tool at a cut: ``dcn_sensitivity`` on
+    the ``quality`` phase's VG export (1 seed, 1 epoch) without and with
+    ``--freeze``; ``neumf_pre_bisect`` at its small default size (2 epochs,
+    ladder 1e-3, 1e-4:2); each HPO study with one trial of one epoch and one
+    ``hp-tuning`` round on a small TG-layout dataset (``EVIDENCE_DATA``)
+    written first. The five run at once, each in a thread (host bound, and
+    mostly waiting on processes of their own); only the PMGT study's
+    restore launches kernels in this process.
+    Checks: every report has the JAX tool's keys with finite numbers; the
+    frozen ``zero`` arm's AUC exactly 0.5; each restored best checkpoint
+    equal to its trial's logged results within 1e-5; the PMGT stages' and
+    trials' K1/K2 exact. The comparisons with the JAX records are printed,
+    not held: a cut is not the records' protocol."""
+    import importlib
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    tools = {m: importlib.import_module(f"pmgt_tpu_torch.tools.{EVIDENCE[m][0]}")
+             for m in EVIDENCE}
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def study(mode, *argv):
+        work = os.path.join(root, mode)
+        write_small_tg(os.path.join(work, "data", "TG"))
+        tool = tools[mode]
+        return tool.run(tool.parse(["--work", work, "--out", work + ".json", "--n-trials", "1",
+                                    "--trial-epochs", "1", "--device", "cuda", *argv]),
+                        rounds=1)
+
+    def report(mode, *argv):
+        out = os.path.join(root, mode)
+        tools[mode].main(["--out", out, "--report", out + ".json", "--device", "cuda", *argv])
+        with open(out + ".json") as f:
+            return json.load(f)
+
+    def timed_job(mode, fn, *argv):
+        t = time.perf_counter()
+        result = fn(mode, *argv)
+        seconds[mode] = time.perf_counter() - t
+        return result
+
+    dcn = ("--shape", "VG", "--emb-path", vg_emb, "--seeds", "0", "--downstream-epochs", "1")
+    jobs = {"hpo-mlp": (study, "--pretrain-epochs", "1"), "hpo-pmgt": (study,),
+            "dcn": (report, *dcn), "dcn-frozen": (report, *dcn, "--freeze"),
+            "neumf-pre": (report, "--epochs", "2", "--lrs", "1e-3,1e-4:2")}
+    zero_launches()
+    with ThreadPoolExecutor(len(jobs)) as pool:  # every tool at once; each raises here
+        futures = {mode: pool.submit(timed_job, mode, *job) for mode, job in jobs.items()}
+        reports = {mode: f.result() for mode, f in futures.items()}
+    in_process = read_launches()
+    tg, pm = reports["hpo-mlp"], reports["hpo-pmgt"]
+    zero = [v for k, v in reports["dcn-frozen"]["auc_exact"].items() if k.startswith("zero_s")]
+    restored = {mode: restore_ok(reports[mode]) for mode in ("hpo-mlp", "hpo-pmgt")}
+    checks = {
+        **{f"{mode}_jax_keys_finite": jax_keys(mode, reports[mode]) for mode in EVIDENCE},
+        "frozen_zero_auc_is_0.5": zero == [0.5],
+        **{f"{mode}_restore_within_1e-5": ok for mode, ok in restored.items()},
+        **hpo_launch_checks(tg, pm),
+        "in_process_launches_are_the_restore": in_process
+        == pm["restore_in_process"]["launches"],
+    }
+    comparisons = {mode: tools[mode].compare_to_jax(reports[mode], jax_record(mode))
+                   for mode in EVIDENCE}
+    row = {"phase": "evidence", "s": time.perf_counter() - t0, "tool_s": seconds,
+           "launches": hpo_launches(tg, pm),
+           "pmgt_trials": {k: {x: r[x] for x in ("hidden_size", "beta", "num_hidden_layers",
+                                                 "epochs", "launches")}
+                           for k, r in pm["trial_records"].items()},
+           "comparison_cut_misses": {k: v["misses"] for k, v in comparisons.items()},
+           "checks": checks, "ok": all(checks.values())}
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"the evidence phase failed: {checks}")
+    return row
+
+
+def evidence_main(mode: str) -> int:
+    """``--evidence <mode>``: one tool at its published protocol on one
+    card, its report held against the JAX record (``EVIDENCE``) and written
+    to ``outputs/<record>``: ``dcn`` / ``dcn-frozen`` (TG, PMGT 8 epochs,
+    seeds 0–2 of 12 epochs side by side), ``neumf-pre`` (TG, 12 epochs,
+    ladder 1e-3, 1e-4, 1e-4:36), ``hpo-mlp`` and ``hpo-pmgt`` (TG, the JAX
+    tools' defaults). Exits 0 when the tool ran to its end; the verdict is
+    in the record."""
+    if one_card_setup() is None:
+        return 1
+    import importlib
+
+    import torch
+
+    name, record_name, jax_name = EVIDENCE[mode]
+    tool = importlib.import_module(f"pmgt_tpu_torch.tools.{name}")
+    outputs = os.path.join(HERE, "outputs")
+    work = os.path.join(outputs, f"evidence_{mode}")
+    argv = {"dcn": ["--shape", "TG"], "dcn-frozen": ["--shape", "TG", "--freeze"],
+            "neumf-pre": ["--shape", "TG", "--lrs", "1e-3,1e-4,1e-4:36"],
+            "hpo-mlp": [], "hpo-pmgt": []}[mode]
+    if name in ("dcn_sensitivity", "neumf_pre_bisect"):
+        argv += ["--out", work, "--report", work + ".json", "--device", "cuda"]
+        tool.main(argv)
+        with open(work + ".json") as f:
+            report = json.load(f)
+    else:
+        report = tool.run(tool.parse([*argv, "--work", work, "--out", work + ".json",
+                                      "--device", "cuda"]))
+    report["comparison"] = tool.compare_to_jax(report, jax_record(mode))
+    report.update(jax_record=jax_name, command_s=time.perf_counter() - T_START)
+    with open(os.path.join(outputs, record_name), "w") as f:
+        json.dump(report, f, indent=1)
+    emit({"phase": "evidence_record", "file": f"outputs/{record_name}",
+          "comparison": report["comparison"]})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+def bisect_main(what: str, seed: int = 0) -> int:
+    """``--bisect dcn-frozen``: the frozen ``real`` arm of ``--evidence
+    dcn-frozen`` (downstream seed 0) on the exports of three pre-trainings,
+    seeds 0, 1, 2 (the tool's PMGT stage with its seed changed): how far the
+    arm moves with the export, which the record's σ over downstream seeds on
+    one export does not see. ``--bisect neumf-pre <seed>``: ``--evidence
+    neumf-pre`` (ladder 1e-3, 1e-4) with every run at downstream seed
+    ``seed``: how far the fine-tuned arms move with the seed, which a record
+    of one run per arm does not see. Each writes
+    ``outputs/BISECT_TORCH_<what>[_s<seed>].json``."""
+    if one_card_setup() is None:
+        return 1
+    import dataclasses
+
+    import torch
+
+    from pmgt_tpu_torch.tools import validate_pipeline as vp
+    from pmgt_tpu_torch.train.registry import RunRegistry
+
+    outputs = os.path.join(HERE, "outputs")
+    work = os.path.join(outputs, f"bisect_{what}_s{seed}")
+    if what == "dcn-frozen":
+        from pmgt_tpu_torch.tasks import dcn_task, pmgt_task
+        from pmgt_tpu_torch.tools import dcn_sensitivity as ds
+
+        ns = ds.parse(["--shape", "TG", "--freeze", "--out", work, "--device", "cuda"])
+        art, signal = ds.make_dataset(ns)
+        registry = RunRegistry(os.path.join(work, "logs"))
+        rows = {}
+        for pre_seed in (0, 1, 2):
+            emb = os.path.join(work, f"node_feat_128dim_s{pre_seed}.npy")
+            pmgt, _ = vp.run_task(pmgt_task, dataclasses.replace(ds.pmgt_args(ns), seed=pre_seed),
+                                  art, registry, f"PMGT_s{pre_seed}", "cuda", export_path=emb)
+            real, _ = vp.run_task(dcn_task, ds.dcn_args(ns, 0, emb, os.path.join(work, "logs")),
+                                  art, registry, f"dcn_real_pre{pre_seed}_s0", "cuda")
+            rows[str(pre_seed)] = {"pmgt": pmgt, "real_frozen_test_auc_s0": real["test/auc"]}
+            emit({"phase": "bisect_dcn_frozen", "pretrain_seed": pre_seed, **rows[str(pre_seed)]})
+        record = {"what": "frozen real arm of the DCN sensitivity (downstream seed 0) on the "
+                          "exports of PMGT pre-training seeds 0, 1, 2", "signal": signal,
+                  "by_pretrain_seed": rows,
+                  "spread": vp.mean_std([r["real_frozen_test_auc_s0"] for r in rows.values()])}
+        name = "BISECT_TORCH_DCN_FROZEN.json"
+    else:
+        from pmgt_tpu_torch.tools import neumf_pre_bisect as nb
+
+        ns = nb.parse(["--shape", "TG", "--lrs", "1e-3,1e-4", "--out", work, "--device", "cuda"])
+        art, signal = nb.make_dataset(ns)
+        tool_args = nb.ncf_args
+        nb.ncf_args = lambda *a: dataclasses.replace(tool_args(*a), seed=seed)
+        try:
+            record = nb.run(ns, art, signal)
+        finally:
+            nb.ncf_args = tool_args
+        record["seed"] = seed
+        name = f"BISECT_TORCH_NEUMF_PRE_s{seed}.json"
+    record.update(provenance=vp.provenance(sys.argv[1:]), command_s=time.perf_counter() - T_START)
+    with open(os.path.join(outputs, name), "w") as f:
+        json.dump(record, f, indent=1)
+    emit({"phase": "bisect_record", "file": f"outputs/{name}"})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
@@ -4324,6 +4623,13 @@ def main() -> int:
     quality = run_quality(os.path.join(HERE, "outputs", "chip_smoke_quality"))
     clock("quality")
 
+    # ---- 24. the evidence tools at a cut: DCN sensitivity on the quality
+    # phase's VG export, the NeuMF-pre bisect, and both HPO studies
+    evidence = run_evidence(os.path.join(HERE, "outputs", "chip_smoke_evidence"),
+                            os.path.join(HERE, "outputs", "chip_smoke_quality", "vg",
+                                         "node_feat_128dim.npy"))
+    clock("evidence")
+
     # ---- 21. data parallelism: one NCCL rank; two gloo ranks sharing the
     # card (train-pmgt replicated and sharded, NCF, DCN, PMGT_NCF, then
     # hp-tuning studies on phase 17's data)
@@ -4375,6 +4681,7 @@ def main() -> int:
           "scale": scale["launches"]["k1"],
           "quality_vg": quality["launches"]["k1"],
           "reproduce_fixture": quality["reproduce_launches"]["k1"],
+          "evidence_hpo": evidence["launches"]["k1"],
           "multi_rank": multi["launches"]["k1"]}),
         ("dual_attention_bwd_sm", K2_SOURCE, K2_REPLACES, pick(k2_checks, 3072), k2_checks,
          {"serving": kern["row"]["k2_launches"], "training": train["k2_launches"],
@@ -4392,6 +4699,7 @@ def main() -> int:
           "scale": scale["launches"]["k2"],
           "quality_vg": quality["launches"]["k2"],
           "reproduce_fixture": quality["reproduce_launches"]["k2"],
+          "evidence_hpo": evidence["launches"]["k2"],
           "multi_rank": multi["launches"]["k2"]}),
         ("dual_attention_fwd_bm", K1_SOURCE, K3_REPLACES, pick(k3_checks, 3072),
          [r for r in k3_checks if r["dtype"] == "float32"],
@@ -4441,6 +4749,7 @@ def main() -> int:
                    multi_rank_studies=multi["studies"], feature_extraction=fx_row,
                    preprocess=pre["row"], hpo_pmgt=hpo_pmgt, hpo_ncf=hpo_ncf,
                    scale=scale["row"], scale_routes=scale["routes"], quality=quality,
+                   evidence=evidence,
                    profile_sessions=prof_sessions,
                    command_s=time.perf_counter() - T_START)
     emit({"phase": "command_time", "seconds": results["command_s"]})
@@ -4462,14 +4771,23 @@ def cli() -> int:
         return multi_card_main(tuple(argv[1:]) or MULTI_CARD_JOBS)
     if argv == ["--scale"]:
         return scale_main()
+    seeds = argv[3:] if argv[2:3] == ["pmgt_ncf"] and argv[1:2] == ["TG"] else argv[2:]
     if (argv[:1] == ["--quality"] and len(argv) >= 2
             and (argv[1:] == ["int8"] or argv[1] in ("VG", "TG")
-                 and all(a.isdigit() for a in argv[2:]))):
+                 and all(a.isdigit() for a in seeds))):
         return quality_main(argv[1:])
+    if argv[:1] == ["--evidence"] and len(argv) == 2 and argv[1] in EVIDENCE:
+        return evidence_main(argv[1])
+    if argv[:2] == ["--bisect", "dcn-frozen"] and len(argv) == 2:
+        return bisect_main("dcn-frozen")
+    if argv[:2] == ["--bisect", "neumf-pre"] and len(argv) == 3 and argv[2].isdigit():
+        return bisect_main("neumf-pre", int(argv[2]))
     if argv:
         print(f"unknown arguments {argv}: none, --scale, --quality VG|TG [seed ...], "
-              f"--quality int8, or --multi-card [{'] ['.join(MULTI_CARD_JOBS)}]",
-              file=sys.stderr)
+              f"--quality TG pmgt_ncf [seed ...], --quality int8, "
+              f"--evidence {'|'.join(EVIDENCE)}, --bisect dcn-frozen|neumf-pre SEED, "
+              f"or --multi-card "
+              f"[{'] ['.join(MULTI_CARD_JOBS)}]", file=sys.stderr)
         return 2
     return main()
 

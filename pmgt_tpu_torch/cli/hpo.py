@@ -411,12 +411,15 @@ def _train_trial(msg: Dict[str, Any], train_name: str, criterion: str, pruning: 
                           is_hptuning=True, trial=rank_trial, enable_trial_pruning=pruning)
     value = results.get(criterion, 0)
     after = launch_counts()
-    records.append({
+    rec = {
         "number": msg["number"], "params": msg["suggested"], "state": "COMPLETE",
         "value": float(value), "results": results, "seconds": time.perf_counter() - t,
         "pruning_answers": rank_trial.answers if rank_trial else [],
         "launches": {k: after[k] - before[k] for k in after},
-        "memory_allocated": _allocated(device)})
+        "memory_allocated": _allocated(device)}
+    records.append(rec)
+    logger.info("trial %d record: %s", rec["number"],
+                json.dumps({k: rec[k] for k in ("value", "results", "seconds", "launches")}))
     return value
 
 

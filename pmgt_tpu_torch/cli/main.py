@@ -543,8 +543,13 @@ def main(argv: Optional[Sequence[str]] = None):
 
 
 def entry() -> int:
-    """The console script: exit status 0 when the command returns."""
+    """The console script: exit status 0 when the command returns. Its
+    last log line is the process's K1–K4 launches (all zero off the card),
+    which tools that drive the CLI in subprocesses read."""
+    from pmgt_tpu_torch.ops.dual_attention import launch_counts
+
     main()
+    logger.info("kernel launches: %s", json.dumps(launch_counts()))
     return 0
 
 

@@ -58,7 +58,7 @@ DATA_SEED = 42
 # ----------------------------------------------------------------------
 # the comparison with the JAX package's records (bounds fixed up front)
 # ----------------------------------------------------------------------
-RANK_ARMS = ("ncf_plain", "ncf_pmgt", "gmf", "mlp", "neumf_pre")
+RANK_ARMS = ("ncf_plain", "ncf_pmgt", "gmf", "mlp", "neumf_pre", "pmgt_ncf")
 RANK_METRICS = ("test/n20", "test/r20")
 AUC_ARMS = ("dcn_plain", "dcn_pmgt")
 SIGMAS = 3.0  # |mean - JAX| <= max(SIGMAS * std, floor)
@@ -70,9 +70,10 @@ NEUMF_PRE_SLACK = 0.005  # NeuMF-pre N@20 >= max(GMF, MLP) - this
 PMGT_AUC_TOL = 0.01  # pre-training's best val-AUC
 
 
-def jax_record(shape: str, repo: str = REPO) -> Dict[str, Any]:
-    """The JAX package's quality record at ``shape``, read as data."""
-    with open(os.path.join(repo, f"QUALITY_{shape.upper()}.json"), encoding="utf-8") as f:
+def jax_record(shape: str, repo: str = REPO, name: Optional[str] = None) -> Dict[str, Any]:
+    """The JAX package's quality record at ``shape`` (or the file
+    ``name``), read as data."""
+    with open(os.path.join(repo, name or f"QUALITY_{shape.upper()}.json"), encoding="utf-8") as f:
         return json.load(f)
 
 
@@ -95,7 +96,8 @@ def compare_to_jax(seeds: Sequence[Dict[str, Any]], jax: Dict[str, Any],
     results dict each, on one export) against the JAX record ``jax``:
 
     - each arm's mean within max(3σ, 0.01) of JAX's N@20 and R@20
-      (``RANK_ARMS``), within max(3σ, 0.005) of its test AUC (``AUC_ARMS``);
+      (``RANK_ARMS``, PMGT_NCF among them), within max(3σ, 0.005) of its
+      test AUC (``AUC_ARMS``);
     - NeuMF-end's N@20 lift (ncf_pmgt / ncf_plain - 1, averaged over the
       seeds) within ±0.05 of JAX's; DCN's AUC lift within ±0.01 of JAX's;
     - NeuMF-pre's mean N@20 at least max(GMF, MLP) - 0.005 (the port's own);
@@ -148,20 +150,22 @@ def compare_to_jax(seeds: Sequence[Dict[str, Any]], jax: Dict[str, Any],
 
 def quality_record(shape: str, seed_results: Dict[int, Dict[str, Any]],
                    provenance: Dict[str, Any], pmgt: Optional[Dict[str, float]] = None,
-                   repo: str = REPO) -> Dict[str, Any]:
+                   repo: str = REPO, jax_name: Optional[str] = None) -> Dict[str, Any]:
     """The port's quality record at ``shape``: provenance, the PMGT
     pre-training's result, each downstream seed's results, their mean and
     standard deviation per arm and metric, and ``compare_to_jax`` against
-    ``QUALITY_<shape>.json``."""
+    ``jax_name`` (default ``QUALITY_<shape>.json``; PMGT_NCF's record at TG
+    is ``QUALITY_TG_PMGT_NCF.json``)."""
     seeds = [seed_results[k] for k in sorted(seed_results)]
-    arms = [a for a in (*RANK_ARMS, "pmgt_ncf", *AUC_ARMS) if any(a in s for s in seeds)]
+    arms = [a for a in (*RANK_ARMS, *AUC_ARMS) if any(a in s for s in seeds)]
     values: Dict[str, Dict[str, List[float]]] = {}
     for s in seeds:
         for a in arms:
             for m, v in s.get(a, {}).items():
                 values.setdefault(a, {}).setdefault(m, []).append(v)
     summary = {a: {m: mean_std(v) for m, v in ms.items()} for a, ms in values.items()}
-    jax = jax_record(shape, repo)
+    jax_name = jax_name or f"QUALITY_{shape.upper()}.json"
+    jax = jax_record(shape, repo, jax_name)
     return {
         "provenance": provenance,
         "shape": shape.upper(),
@@ -170,7 +174,7 @@ def quality_record(shape: str, seed_results: Dict[int, Dict[str, Any]],
         "seeds": {str(k): {a: seed_results[k][a] for a in arms if a in seed_results[k]}
                   for k in sorted(seed_results)},
         "summary": summary,
-        "jax_record": f"QUALITY_{shape.upper()}.json",
+        "jax_record": jax_name,
         "comparison": compare_to_jax(seeds, jax, pmgt),
     }
 

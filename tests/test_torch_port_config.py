@@ -131,7 +131,9 @@ def test_port_sources_import_no_jax_and_no_pmgt_tpu():
                 "native/__init__.py", "core/mesh.py", "data/feature_extraction.py",
                 "utils/base.py", "tools/__init__.py", "tools/scale_smoke.py",
                 "tools/validate_pipeline.py", "tools/quality_int8_tables.py",
-                "tools/reproduce_published.py"):
+                "tools/reproduce_published.py", "tools/dcn_sensitivity.py",
+                "tools/neumf_pre_bisect.py", "tools/hpo_tg_study.py",
+                "tools/hpo_pmgt_study.py"):
         assert os.path.join(ROOT, "pmgt_tpu_torch", new) in files
     bad, tried = [], set()
     for p in files:
