@@ -26,6 +26,7 @@ the training path, and checks what comes out.
                                           # published protocol, held against
                                           # the JAX record (``EVIDENCE``)
     python3 chip_smoke.py --bisect dcn-frozen|neumf-pre SEED
+    python3 chip_smoke.py --bisect dcn-frozen-seeds [seed ...]
                                           # where a record missed a bound:
                                           # the spread it does not see
 
@@ -3196,7 +3197,7 @@ def pmgt_trial_launches(num_nodes: int, cfg: dict, layers: int) -> dict:
     """K1 / K2 of one PMGT trial on each rank: L a step; K1 also L an
     evaluation chunk, over the epoch's validation and the HPO test (both
     on the validation split)."""
-    from pmgt_tpu_torch.tools.hpo_tg_study import pmgt_run_launches
+    from pmgt_tpu_torch.tools.cli_runner import pmgt_run_launches
 
     return pmgt_run_launches(num_nodes, cfg["valid_size"], cfg["train_batch_size"],
                              cfg["test_batch_size"], layers, 1)
@@ -3935,7 +3936,7 @@ def pmgt_stage_launches(num_nodes: int, epochs: int, valid_size: float = 0.1, ba
     """K1/K2 of ``validate_pipeline``'s PMGT stage, from the code: K2 =
     L a step; K1 = L a step, L an evaluation chunk (one evaluation an
     epoch; the stage exports instead of testing) and L an export chunk."""
-    from pmgt_tpu_torch.tools.hpo_tg_study import pmgt_run_launches
+    from pmgt_tpu_torch.tools.cli_runner import pmgt_run_launches
 
     return pmgt_run_launches(num_nodes, valid_size, batch, test_batch, layers, epochs, tests=0,
                              export_batch=test_batch)
@@ -4010,43 +4011,41 @@ def run_quality(root: str) -> dict:
     return row
 
 
-def run_seeds(shape: str, emb_path: str, seeds, root: str, threads: int = 2,
+def run_seeds(shape: str, emb_path: str, seeds, root: str,
               families: str = QUALITY_FAMILIES) -> dict:
     """``validate_pipeline --shape <shape> --emb-path <emb_path> --families
     <families>`` for each downstream seed, all at once as processes of
-    their own on the one card (each host bound, the card mostly idle);
-    {seed: results} and each one's wall seconds. Every process is stopped
-    before this returns."""
-    env = dict(os.environ, OMP_NUM_THREADS=str(threads), MKL_NUM_THREADS=str(threads))
-    procs, out = [], {}
-    try:
-        for k in seeds:
-            d = os.path.join(root, f"seed{k}")
-            os.makedirs(d, exist_ok=True)
-            log = open(os.path.join(d, "log.txt"), "w")
-            argv = [sys.executable, "-m", "pmgt_tpu_torch.tools.validate_pipeline", "--shape",
-                    shape, "--emb-path", emb_path, "--downstream-seed", str(k), "--out", d,
-                    "--families", families, "--device", "cuda"]
-            procs.append((k, d, log, time.perf_counter(),
-                          subprocess.Popen(argv, cwd=HERE, env=env, stdout=log,
-                                           stderr=subprocess.STDOUT)))
-        for k, d, log, t0, p in procs:
-            rc = p.wait()
-            log.close()
-            if rc != 0:
-                with open(os.path.join(d, "log.txt")) as f:
-                    tail = f.read()[-3000:]
-                raise RuntimeError(f"downstream seed {k} failed (rc {rc}):\n{tail}")
-            with open(os.path.join(d, "results.json")) as f:
-                out[k] = json.load(f)
-            emit({"phase": "quality_seed", "shape": shape, "seed": k,
-                  "wall_s": time.perf_counter() - t0})
-    finally:
-        for *_, p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    their own on the one card (``cli_runner.run_processes``); {seed:
+    results}."""
+    from pmgt_tpu_torch.tools.cli_runner import run_processes
+
+    jobs = {}
+    for k in seeds:
+        d = os.path.join(root, f"seed{k}")
+        os.makedirs(d, exist_ok=True)
+        argv = [sys.executable, "-m", "pmgt_tpu_torch.tools.validate_pipeline", "--shape",
+                shape, "--emb-path", emb_path, "--downstream-seed", str(k), "--out", d,
+                "--families", families, "--device", "cuda"]
+        jobs[f"downstream seed {k}"] = (argv, os.path.join(d, "log.txt"))
+    wall = run_processes(jobs)
+    out = {}
+    for k in seeds:
+        with open(os.path.join(root, f"seed{k}", "results.json")) as f:
+            out[k] = json.load(f)
+    # a process is timed when it is reaped, in seed order: the last is all of them
+    emit({"phase": "quality_seeds", "shape": shape, "seeds": list(seeds),
+          "wall_s": max(wall.values())})
     return out
+
+
+def val_curves(log_dir: str) -> dict:
+    """Per-epoch validation N@20 and R@20 of the one PMGT_NCF run under
+    ``log_dir``."""
+    from pmgt_tpu_torch.train.registry import RunRegistry
+
+    (run,) = RunRegistry(log_dir).list_runs("pmgt_ncf")
+    metrics = run.metrics()
+    return {k: [m["value"] for m in metrics if m["name"] == k] for k in ("val/n20", "val/r20")}
 
 
 def quality_main(argv) -> int:
@@ -4055,12 +4054,15 @@ def quality_main(argv) -> int:
     already holds them), then the downstream families for 12 epochs at each
     seed (default 0, 1, 2, in parallel processes), gathered with any seed
     already under that directory into ``outputs/QUALITY_TORCH_<S>.json``
-    with the comparison against ``QUALITY_<S>.json``. ``--quality TG
-    pmgt_ncf [seed ...]``: the same with PMGT_NCF as the one family (it
-    trains its own encoder; the pre-training gives the record its PMGT
-    row, as the JAX record has one) under ``outputs/quality_torch_TG_pmgt_ncf``,
-    into ``outputs/QUALITY_TORCH_TG_PMGT_NCF.json`` against
-    ``QUALITY_TG_PMGT_NCF.json``. ``--quality int8``:
+    (seeds 0-2) with the comparison against ``QUALITY_<S>.json``; seeds
+    other than 0-2, or more, also go into ``..._s<seed>-<seed>....json``,
+    compared the same way. ``--quality TG pmgt_ncf [seed ...]``: the same
+    with PMGT_NCF as the one family (it trains its own encoder; the
+    pre-training gives the record its PMGT row, as the JAX record has one)
+    under ``outputs/quality_torch_TG_pmgt_ncf``, into
+    ``outputs/QUALITY_TORCH_TG_PMGT_NCF[_s...].json`` against
+    ``QUALITY_TG_PMGT_NCF.json``, with each seed's per-epoch validation
+    N@20 and R@20. ``--quality int8``:
     ``tools/quality_int8_tables`` at its defaults (10,834 nodes, 8 epochs,
     batch 512) into ``outputs/QUALITY_TORCH_INT8_TG.json``. Exits 0 when
     every run completed; the comparison's verdict is in the record."""
@@ -4084,7 +4086,7 @@ def quality_main(argv) -> int:
                   "provenance": vp.provenance(sys.argv[1:]), "variants": variants,
                   "verdict": q8.verdict(*variants), "launches": read_launches(),
                   "jax_record": "QUALITY_INT8_TG.json"}
-        name = "QUALITY_TORCH_INT8_TG.json"
+        records = {"QUALITY_TORCH_INT8_TG.json": record}
     else:
         pmgt_ncf = argv[1:2] == ["pmgt_ncf"]
         rest = argv[2:] if pmgt_ncf else argv[1:]
@@ -4110,14 +4112,25 @@ def quality_main(argv) -> int:
                 with open(path) as f:
                     done[int(name[4:])] = json.load(f)
         jax_name = f"QUALITY_{shape}{suffix.upper()}.json"
-        record = vp.quality_record(shape, done, vp.provenance(sys.argv[1:]), pmgt,
-                                   jax_name=jax_name)
-        name = f"QUALITY_TORCH_{shape}{suffix.upper()}.json"
-    record["command_s"] = time.perf_counter() - T_START
-    with open(os.path.join(outputs, name), "w") as f:
-        json.dump(record, f, indent=1)
-    emit({"phase": "quality_record", "file": f"outputs/{name}",
-          "verdict": record.get("verdict") or record["comparison"]})
+        prov = vp.provenance(sys.argv[1:])
+        # the record of seeds 0-2; other seeds, or more, in a record of their own
+        groups = [sorted(done)]
+        groups += [list(QUALITY_SEEDS)] if set(QUALITY_SEEDS) < set(done) else []
+        records = {}
+        for group in groups:
+            record = vp.quality_record(shape, {k: done[k] for k in group}, prov, pmgt,
+                                       jax_name=jax_name)
+            if pmgt_ncf:
+                record["val_curves"] = {str(k): val_curves(os.path.join(root, f"seed{k}", "logs"))
+                                        for k in group}
+            tag = "" if group == list(QUALITY_SEEDS) else "_s" + "-".join(map(str, group))
+            records[f"QUALITY_TORCH_{shape}{suffix.upper()}{tag}.json"] = record
+    for name, record in records.items():
+        record["command_s"] = time.perf_counter() - T_START
+        with open(os.path.join(outputs, name), "w") as f:
+            json.dump(record, f, indent=1)
+        emit({"phase": "quality_record", "file": f"outputs/{name}",
+              "verdict": record.get("verdict") or record["comparison"]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
@@ -4168,10 +4181,10 @@ def jax_keys(mode: str, report: dict) -> bool:
 def restore_ok(report: dict) -> bool:
     """A study's best checkpoint, restored in the tool's process, equal to
     its trial's logged results within 1e-5."""
-    from pmgt_tpu_torch.tools import hpo_tg_study as htg
+    from pmgt_tpu_torch.tools.cli_runner import restore_check
 
     logged = report["trial_records"][str(report["best"]["number"])]["results"]
-    return htg.restore_check(logged, report["restore_in_process"]["results"])["ok"]
+    return restore_check(logged, report["restore_in_process"]["results"])["ok"]
 
 
 def hpo_launch_checks(tg: dict, pm: dict) -> dict:
@@ -4328,8 +4341,72 @@ def evidence_main(mode: str) -> int:
     return 0
 
 
-def bisect_main(what: str, seed: int = 0) -> int:
-    """``--bisect dcn-frozen``: the frozen ``real`` arm of ``--evidence
+DCN_FROZEN_SEEDS = (0, 3, 4, 5, 6, 7, 8)  # seed 0 again: does the card reproduce the record?
+
+
+def dcn_frozen_seeds(work: str, seeds) -> dict:
+    """The frozen ``real`` arm of ``--evidence dcn-frozen`` at more
+    downstream seeds on the record's export (PMGT seed 0), one after the
+    other in this process, pooled with the record's seeds 0-2
+    (``DCN_SENSITIVITY_TORCH_TG_FROZEN.json``) and set beside the JAX
+    record's own spread: the gap of the means against their combined
+    standard error, sqrt(σ_port²/n_port + σ_jax²/n_jax). The record's
+    bound is not changed by this."""
+    from pmgt_tpu_torch.tasks import dcn_task, pmgt_task
+    from pmgt_tpu_torch.tools import dcn_sensitivity as ds
+    from pmgt_tpu_torch.tools import validate_pipeline as vp
+    from pmgt_tpu_torch.train.registry import RunRegistry
+
+    ns = ds.parse(["--shape", "TG", "--freeze", "--out", work, "--device", "cuda"])
+    art, signal = ds.make_dataset(ns)
+    log_dir = os.path.join(work, "logs")
+    registry = RunRegistry(log_dir)
+    emb = os.path.join(work, "node_feat_128dim.npy")
+    pmgt, _ = vp.run_task(pmgt_task, ds.pmgt_args(ns), art, registry, "PMGT", "cuda",
+                          export_path=emb)
+    np.save(os.path.join(work, "emb_real.npy"), ds.variants(np.load(emb))["real"])
+    auc = {}
+    for k in seeds:
+        args = ds.dcn_args(ns, k, os.path.join(work, "emb_real.npy"), log_dir)
+        res, _ = vp.run_task(dcn_task, args, art, registry, f"dcn_real_s{k}", "cuda")
+        auc[k] = res["test/auc"]
+        emit({"phase": "bisect_dcn_frozen_seed", "seed": k, "real_frozen_test_auc": auc[k]})
+    with open(os.path.join(HERE, "DCN_SENSITIVITY_TORCH_TG_FROZEN.json")) as f:
+        rec = json.load(f)["auc_exact"]
+    with open(os.path.join(HERE, "DCN_SENSITIVITY_TG_FROZEN.json")) as f:
+        jax = json.load(f)["auc"]
+    return {"what": "frozen real arm of the DCN sensitivity at more downstream seeds on the "
+                    "record's export (PMGT seed 0), pooled with the record's seeds 0-2",
+            "signal": signal, "pmgt": pmgt,
+            "real_frozen_test_auc": {str(k): v for k, v in auc.items()},
+            **seed_gap(auc, rec, jax)}
+
+
+def seed_gap(auc: dict, record: dict, jax: dict) -> dict:
+    """The ``real`` arm's AUC at seeds ``auc`` ({seed: AUC}) pooled with a
+    record's (``auc_exact``: the record's value where both have a seed)
+    against the JAX record's seeds (``auc``): each side's mean and sample
+    σ, how far each new seed that the record has reproduces it, the gap
+    of the means and its combined standard error."""
+    from pmgt_tpu_torch.tools import validate_pipeline as vp
+
+    rec = {int(k[6:]): v for k, v in record.items() if k.startswith("real_s")}
+    pooled = {**auc, **rec}
+    port = vp.mean_std(list(pooled.values()))
+    ref = vp.mean_std([v for k, v in jax.items() if k.startswith("real_s")])
+    se = math.sqrt(port["std"] ** 2 / port["n"] + ref["std"] ** 2 / ref["n"])
+    gap = port["mean"] - ref["mean"]
+    return {"record_seeds": {str(k): v for k, v in rec.items()},
+            "reproduced": {str(k): auc[k] - rec[k] for k in auc if k in rec},
+            "pooled_port": port, "jax": ref, "gap": gap, "combined_se": se,
+            "gap_over_se": gap / se}
+
+
+def bisect_main(what: str, seed: int = 0, seeds=DCN_FROZEN_SEEDS) -> int:
+    """``--bisect dcn-frozen-seeds [seed ...]``: ``dcn_frozen_seeds`` at
+    ``seeds`` (default ``DCN_FROZEN_SEEDS``), into
+    ``outputs/BISECT_TORCH_DCN_FROZEN_SEEDS.json``. ``--bisect
+    dcn-frozen``: the frozen ``real`` arm of ``--evidence
     dcn-frozen`` (downstream seed 0) on the exports of three pre-trainings,
     seeds 0, 1, 2 (the tool's PMGT stage with its seed changed): how far the
     arm moves with the export, which the record's σ over downstream seeds on
@@ -4349,7 +4426,10 @@ def bisect_main(what: str, seed: int = 0) -> int:
 
     outputs = os.path.join(HERE, "outputs")
     work = os.path.join(outputs, f"bisect_{what}_s{seed}")
-    if what == "dcn-frozen":
+    if what == "dcn-frozen-seeds":
+        record = dcn_frozen_seeds(work, seeds)
+        name = "BISECT_TORCH_DCN_FROZEN_SEEDS.json"
+    elif what == "dcn-frozen":
         from pmgt_tpu_torch.tasks import dcn_task, pmgt_task
         from pmgt_tpu_torch.tools import dcn_sensitivity as ds
 
@@ -4780,12 +4860,16 @@ def cli() -> int:
         return evidence_main(argv[1])
     if argv[:2] == ["--bisect", "dcn-frozen"] and len(argv) == 2:
         return bisect_main("dcn-frozen")
+    if argv[:2] == ["--bisect", "dcn-frozen-seeds"] and all(a.isdigit() for a in argv[2:]):
+        seeds = tuple(map(int, argv[2:])) or DCN_FROZEN_SEEDS
+        return bisect_main("dcn-frozen-seeds", seeds=seeds)
     if argv[:2] == ["--bisect", "neumf-pre"] and len(argv) == 3 and argv[2].isdigit():
         return bisect_main("neumf-pre", int(argv[2]))
     if argv:
         print(f"unknown arguments {argv}: none, --scale, --quality VG|TG [seed ...], "
               f"--quality TG pmgt_ncf [seed ...], --quality int8, "
               f"--evidence {'|'.join(EVIDENCE)}, --bisect dcn-frozen|neumf-pre SEED, "
+              f"--bisect dcn-frozen-seeds [seed ...], "
               f"or --multi-card "
               f"[{'] ['.join(MULTI_CARD_JOBS)}]", file=sys.stderr)
         return 2

@@ -39,7 +39,9 @@ gets a ``RankTrial``: rank 0's ``should_prune`` is broadcast. The
 multi-host trio in a trial config, and a ``num_devices`` the space
 suggests, are refused. Each rank keeps a record of each trial: state,
 value, seconds, pruning answers, kernel launches and the card's allocated
-bytes after it.
+bytes after it; rank 0 also stores its value, results, seconds and
+launches with the study's trial (the user attribute ``record``, which the
+built-in study writes to its trials JSON).
 """
 from __future__ import annotations
 
@@ -193,6 +195,7 @@ class RandomTrial:
         self._history = history or []
         self.value: Optional[float] = None
         self.state = "RUNNING"
+        self.user_attrs: Dict[str, Any] = {}
 
     def _param_history(self, name):
         return [
@@ -237,6 +240,11 @@ class RandomTrial:
 
     def report(self, value, step):  # no pruner in the built-in study
         pass
+
+    def set_user_attr(self, key, value):
+        """Optuna's trial attribute: stored with the trial in the trials
+        JSON."""
+        self.user_attrs[key] = value
 
     def should_prune(self):
         return False
@@ -311,6 +319,8 @@ class RandomSearchStudy:
                     "value": None,
                     "state": "PRUNED",
                 }
+            if trial.user_attrs:
+                record["user_attrs"] = trial.user_attrs
             self.trials.append(record)
             with open(self.path, "w", encoding="utf-8") as f:
                 json.dump(self.trials, f, indent=2)
@@ -418,8 +428,6 @@ def _train_trial(msg: Dict[str, Any], train_name: str, criterion: str, pruning: 
         "launches": {k: after[k] - before[k] for k in after},
         "memory_allocated": _allocated(device)}
     records.append(rec)
-    logger.info("trial %d record: %s", rec["number"],
-                json.dumps({k: rec[k] for k in ("value", "results", "seconds", "launches")}))
     return value
 
 
@@ -493,8 +501,12 @@ def run_study(spec: StudySpec) -> Dict[str, Any]:
         return {"best": None, "trials": records}
 
     def objective(trial):
-        return _objective(trial, spec.train_params, spec.hp_params, spec.train_name,
-                          spec.criterion, spec.enable_trial_pruning, spec.device, records)
+        value = _objective(trial, spec.train_params, spec.hp_params, spec.train_name,
+                           spec.criterion, spec.enable_trial_pruning, spec.device, records)
+        # the study stores the trained trial's record with it
+        trial.set_user_attr("record", {k: records[-1][k] for k in ("value", "results",
+                                                                    "seconds", "launches")})
+        return value
 
     n_trials = spec.n_trials
     if HAVE_OPTUNA:

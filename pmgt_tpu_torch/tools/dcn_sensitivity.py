@@ -31,7 +31,6 @@ import json
 import logging
 import os
 import statistics
-import subprocess
 import sys
 import time
 from typing import Any, Dict, Optional, Sequence
@@ -42,10 +41,10 @@ from pmgt_tpu_torch.core.config import TrainArgs
 from pmgt_tpu_torch.data.artifacts import load_artifacts, save_native
 from pmgt_tpu_torch.data.synthetic import CALIBRATED_SIGNAL, make_published_shape_dataset
 from pmgt_tpu_torch.tasks import dcn_task, pmgt_task
+from pmgt_tpu_torch.tools import cli_runner as cr
 from pmgt_tpu_torch.tools import validate_pipeline as vp
 from pmgt_tpu_torch.train.registry import RunRegistry
 
-REPO = vp.REPO
 VARIANTS = ("real", "nerf50", "zero")
 ARMS = ("plain",) + VARIANTS
 DATASET = "Q"  # the dataset's name under <out>/data, where the seed processes read it
@@ -174,39 +173,26 @@ def seed_arms(ns: argparse.Namespace, seed: int) -> Dict[str, float]:
     return auc
 
 
-def run_seeds(ns: argparse.Namespace, seeds: Sequence[int], threads: int = 2) -> Dict[str, float]:
+def run_seeds(ns: argparse.Namespace, seeds: Sequence[int]) -> Dict[str, float]:
     """``seed_arms`` for every seed, each in a process of its own, all at
-    once; the union of their AUCs. A process that fails raises with its
-    log's tail; every process is stopped before this returns."""
-    env = dict(os.environ, OMP_NUM_THREADS=str(threads), MKL_NUM_THREADS=str(threads))
-    procs, auc = [], {}
-    try:
-        for k in seeds:
-            argv = [sys.executable, "-m", "pmgt_tpu_torch.tools.dcn_sensitivity",
-                    "--worker-seed", str(k), "--out", ns.out, "--downstream-epochs",
-                    str(ns.downstream_epochs), "--device", ns.device]
-            argv += ["--freeze"] if ns.freeze else []
-            log = open(os.path.join(ns.out, f"seed{k}.log"), "w")
-            procs.append((k, log, subprocess.Popen(argv, cwd=REPO, env=env, stdout=log,
-                                                   stderr=subprocess.STDOUT)))
-        for k, log, p in procs:
-            rc = p.wait()
-            log.close()
-            if rc != 0:
-                with open(os.path.join(ns.out, f"seed{k}.log")) as f:
-                    raise RuntimeError(f"DCN seed {k} failed (rc {rc}):\n{f.read()[-3000:]}")
-            with open(os.path.join(ns.out, f"seed{k}.json")) as f:
-                auc.update(json.load(f))
-    finally:
-        for *_, p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    once (``cli_runner.run_processes``); the union of their AUCs."""
+    jobs = {}
+    for k in seeds:
+        argv = [sys.executable, "-m", "pmgt_tpu_torch.tools.dcn_sensitivity",
+                "--worker-seed", str(k), "--out", ns.out, "--downstream-epochs",
+                str(ns.downstream_epochs), "--device", ns.device]
+        argv += ["--freeze"] if ns.freeze else []
+        jobs[f"DCN seed {k}"] = (argv, os.path.join(ns.out, f"seed{k}.log"))
+    cr.run_processes(jobs)
+    auc = {}
+    for k in seeds:
+        with open(os.path.join(ns.out, f"seed{k}.json")) as f:
+            auc.update(json.load(f))
     return auc
 
 
-def run(ns: argparse.Namespace, art, signal: Optional[float], argv: Sequence[str] = (),
-        threads: int = 2) -> Dict[str, Any]:
+def run(ns: argparse.Namespace, art, signal: Optional[float],
+        argv: Sequence[str] = ()) -> Dict[str, Any]:
     """The PMGT stage (unless ``--emb-path``), the variants, every seed's
     four arms and the analysis; writes ``--report`` when given and returns
     the report (the JAX tool's keys, ``provenance`` beside them)."""
@@ -226,7 +212,7 @@ def run(ns: argparse.Namespace, art, signal: Optional[float], argv: Sequence[str
     for name, arr in variants(np.load(emb_path)).items():
         np.save(os.path.join(ns.out, f"emb_{name}.npy"), arr)
     seeds = [int(s) for s in ns.seeds.split(",")]
-    auc = run_seeds(ns, seeds, threads)
+    auc = run_seeds(ns, seeds)
     prov = vp.provenance(argv)
     report = {
         "what": "DCN gate sensitivity: known fidelity nerfs injected into the PMGT "

@@ -35,7 +35,7 @@ import time
 from typing import Any, Dict, List, Optional, Sequence
 
 from pmgt_tpu_torch.data.synthetic import CALIBRATED_SIGNAL
-from pmgt_tpu_torch.tools import hpo_tg_study as tg
+from pmgt_tpu_torch.tools import cli_runner as cr
 from pmgt_tpu_torch.tools import validate_pipeline as vp
 
 REPO = vp.REPO
@@ -57,6 +57,11 @@ def train_params(data_dir: str, log_dir: str, trial_epochs: int) -> Dict[str, An
                   num_epochs=trial_epochs, early=3, train_batch_size=256,
                   test_batch_size=512, experiment_name=EXPERIMENT)
     return params
+
+
+def make_dataset(ns: argparse.Namespace, tg_dir: str) -> Dict[str, Any]:
+    """Stage 1 (tools/hpo_pmgt_study.py:73-77)."""
+    return cr.make_tg_dataset(tg_dir, ns.signal, ns.device)
 
 
 def restore_args(best: Dict[str, Any], run_id: str, data_dir: str, log_dir: str,
@@ -84,12 +89,12 @@ def trial_launches(num_nodes: int, run_params: Dict[str, Any], epochs: int,
     the test of its best checkpoint (the validation split under
     hp-tuning)."""
     p = run_params
-    return tg.expected(device, tg.pmgt_run_launches(
+    return cr.expected(device, cr.pmgt_run_launches(
         num_nodes, p["valid_size"], p["train_batch_size"], p["test_batch_size"],
         int(p["num_hidden_layers"]), epochs, seed=int(p["seed"])))
 
 
-def run(ns: argparse.Namespace, rounds: int = tg.ROUNDS) -> Dict[str, Any]:
+def run(ns: argparse.Namespace, rounds: int = cr.ROUNDS) -> Dict[str, Any]:
     """Every stage; writes ``--out`` and returns the report: the JAX
     tool's keys, then ``provenance``, each trial's logged record with its
     epochs, parameters and expected launches (``trial_records``), and the
@@ -102,14 +107,14 @@ def run(ns: argparse.Namespace, rounds: int = tg.ROUNDS) -> Dict[str, Any]:
     tg_dir = os.path.join(data_dir, "TG")
     os.makedirs(work, exist_ok=True)
     report: Dict[str, Any] = {"work": work, "signal": ns.signal,
-                              "stages": [tg.make_dataset(ns, tg_dir)]}
-    num_nodes = tg.num_nodes_of(tg_dir)
+                              "stages": [make_dataset(ns, tg_dir)]}
+    num_nodes = cr.num_nodes_of(tg_dir)
 
     params = train_params(data_dir, log_dir, ns.trial_epochs)
     params_path = os.path.join(work, "train_pmgt_params.TG.json")
     with open(params_path, "w", encoding="utf-8") as f:
         json.dump(params, f, indent=2)
-    done = tg.study(["--hp-config-path", os.path.join(REPO, "config/hpo/hpo_pmgt_params.yaml"),
+    done = cr.study(["--hp-config-path", os.path.join(REPO, "config/hpo/hpo_pmgt_params.yaml"),
                      "--train-config-path", params_path, "--study-name", STUDY,
                      "--storage-path", os.path.join(work, "hpo_storage.db"),
                      "--train-name", "pmgt", "--enable-trial-pruning"], ns.n_trials,
@@ -123,8 +128,8 @@ def run(ns: argparse.Namespace, rounds: int = tg.ROUNDS) -> Dict[str, Any]:
     for t in trials:
         if t["state"] != "COMPLETE":
             continue
-        run_ = tg.tagged_run(log_dir, EXPERIMENT, t["number"])
-        epochs = tg.evaluations(run_)
+        run_ = cr.tagged_run(log_dir, EXPERIMENT, t["number"])
+        epochs = cr.evaluations(run_)
         report["trial_records"][str(t["number"])] = {
             **done["records"][t["number"]], "epochs": epochs,
             "hidden_size": run_.params["hidden_size"], "beta": run_.params["beta"],
@@ -136,13 +141,13 @@ def run(ns: argparse.Namespace, rounds: int = tg.ROUNDS) -> Dict[str, Any]:
     else:
         best = max(complete, key=lambda t: t["value"])
         report["best"] = copy.deepcopy(best)
-        best_run = tg.tagged_run(log_dir, EXPERIMENT, best["number"])
-        out = tg.run_cli(restore_args(best, best_run.run_id, data_dir, log_dir, params),
+        best_run = cr.tagged_run(log_dir, EXPERIMENT, best["number"])
+        out = cr.run_cli(restore_args(best, best_run.run_id, data_dir, log_dir, params),
                          ns.device)
-        report["best_restore_eval"] = tg.test_results(out)
+        report["best_restore_eval"] = cr.test_results(out)
         report["best_run_id"] = best_run.run_id
-        report["restore_in_process"] = tg.restore_in_process("pmgt", best_run, ns.device)
-        report["restore_expected_launches"] = tg.expected(ns.device, tg.pmgt_run_launches(
+        report["restore_in_process"] = cr.restore_in_process("pmgt", best_run, ns.device)
+        report["restore_expected_launches"] = cr.expected(ns.device, cr.pmgt_run_launches(
             num_nodes, params["valid_size"], 256, params["test_batch_size"],
             int(best_run.params["num_hidden_layers"]), 0, seed=int(best_run.params["seed"])))
     report["seconds"] = time.perf_counter() - t0
@@ -175,7 +180,7 @@ def compare_to_jax(report: Dict[str, Any], jax: Dict[str, Any]) -> Dict[str, Any
         rows.append({"check": "best value >= JAX best - 0.01", "port": best["value"],
                      "floor": jax["best"]["value"] - BEST_SLACK,
                      "ok": best["value"] >= jax["best"]["value"] - BEST_SLACK})
-        rows.append(tg.restore_check(recs[str(best["number"])]["results"],
+        rows.append(cr.restore_check(recs[str(best["number"])]["results"],
                                      report["restore_in_process"]["results"]))
         rows.append({"check": "restore launches exact",
                      "port": report["restore_in_process"]["launches"],

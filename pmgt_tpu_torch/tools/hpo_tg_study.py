@@ -29,18 +29,16 @@ The signal defaults to ``CALIBRATED_SIGNAL["TG"]`` (0.5), the value of the
 JAX record. The JAX tool looks it up by matching a literal in
 ``tools/validate_pipeline.py``, which no longer defines it, and falls back
 to 1.0. Each stage's K1–K4 launches come from its subprocess's last log
-line; each trial's from its ``trial N record`` line.
+line; each trial's from the study's trials JSON (``cli_runner``).
 """
 from __future__ import annotations
 
 import argparse
-import ast
 import copy
 import json
 import logging
 import os
 import re
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -50,7 +48,7 @@ import numpy as np
 
 from pmgt_tpu_torch.cli import space_yaml
 from pmgt_tpu_torch.data.synthetic import CALIBRATED_SIGNAL
-from pmgt_tpu_torch.ops.dual_attention import launch_counts
+from pmgt_tpu_torch.tools import cli_runner as cr
 from pmgt_tpu_torch.tools import validate_pipeline as vp
 from pmgt_tpu_torch.train.registry import RunRegistry
 
@@ -65,117 +63,11 @@ ARM_DIM = {
 }
 MIN_COMPLETE = 4
 MIN_PRUNED = 1
-ROUNDS = 4  # hp-tuning invocations at most (tools/hpo_tg_study.py:226)
 EXPERIMENT = "MLP-PMGT-HPO-TG"
 STUDY = "mlp_pmgt_tg"
 
 # the comparison with the JAX package's record (bounds fixed up front)
 BEST_SLACK = 0.01  # the best trial's value >= JAX's best - this
-RESTORE_TOL = 1e-5  # the restored best checkpoint against its trial's logged results
-NO_LAUNCHES = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
-
-
-# ----------------------------------------------------------------------
-# the CLI in subprocesses
-# ----------------------------------------------------------------------
-
-def run_cli(args: Sequence[Any], device: str) -> str:
-    """One command of the port's CLI in a subprocess on ``device``; its
-    output (stdout then stderr). A command that fails raises with the
-    tail of its output."""
-    cmd = [sys.executable, "-m", "pmgt_tpu_torch.cli.main", "--device", device,
-           *[str(a) for a in args]]
-    print("+", " ".join(cmd), flush=True)
-    res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True)
-    out = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"CLI failed: {args[0]} (exit {res.returncode}):\n{out[-4000:]}")
-    return out
-
-
-def last_run_id(out: str) -> str:
-    ids = re.findall(r"run_id: ([0-9a-f]{32})", out)
-    if not ids:
-        raise RuntimeError("no run_id in CLI output")
-    return ids[-1]
-
-
-def launches_of(out: str) -> Dict[str, int]:
-    """The K1–K4 launches a CLI process logged last."""
-    found = re.findall(r"kernel launches: (\{.*\})", out)
-    if not found:
-        raise RuntimeError("no kernel launches in CLI output")
-    return json.loads(found[-1])
-
-
-def trial_records(out: str) -> Dict[int, Dict[str, Any]]:
-    """{trial number: its value, results, seconds and launches} of the
-    trials an hp-tuning process trained."""
-    return {int(n): json.loads(r) for n, r in re.findall(r"trial (\d+) record: (\{.*\})", out)}
-
-
-def test_results(out: str) -> Optional[Dict[str, float]]:
-    found = re.findall(r"test results: (\{.*\})", out)
-    return ast.literal_eval(found[-1]) if found else None
-
-
-def evaluations(run) -> int:
-    """Validation points a run logged (one an epoch)."""
-    return sum(m["name"] in ("val/auc", "val/n20") for m in run.metrics())
-
-
-def tagged_run(log_dir: str, experiment: str, number: int):
-    """The registry run of trial ``number`` (tools/hpo_tg_study.py:253-263)."""
-    for run in RunRegistry(log_dir).list_runs(experiment):
-        with open(os.path.join(run.run_dir, "tags.json"), encoding="utf-8") as f:
-            if json.load(f).get("trial") == str(number):
-                return run
-    raise RuntimeError(f"no registry run tagged trial={number}")
-
-
-def restore_in_process(train_name: str, run, device: str) -> Dict[str, Any]:
-    """The run's best checkpoint evaluated in this process as its trial
-    evaluated it (``is_hptuning``: the validation split, labelled
-    ``test/``), with the run's own arguments: its results and launches."""
-    from pmgt_tpu_torch.cli.main import train_args, train_model
-
-    args = train_args({**run.params, "mode": "eval", "run_id": run.run_id, "num_devices": 1})
-    before = launch_counts()
-    results = train_model(train_name, args, device=device, is_hptuning=True)
-    after = launch_counts()
-    return {"results": results, "launches": {k: after[k] - before[k] for k in after}}
-
-
-def restore_check(logged: Dict[str, float], restored: Dict[str, float]) -> Dict[str, Any]:
-    diff = max(abs(restored[k] - v) for k, v in logged.items())
-    return {"check": "restored best == its logged results (1e-5)", "max_abs_diff": diff,
-            "bound": RESTORE_TOL, "ok": bool(set(restored) == set(logged) and diff <= RESTORE_TOL)}
-
-
-def study(args: List[Any], n_trials: int, trials_path: str, done, device: str,
-          rounds: int = ROUNDS) -> Dict[str, Any]:
-    """``hp-tuning`` with ``args`` at ``--n-trials n_trials``, then again
-    one trial more at a time until ``done(n_complete, n_pruned)`` or
-    ``rounds`` invocations (tools/hpo_tg_study.py:226-238): the stored
-    trials, their counts, each trained trial's logged record and the
-    seconds of each invocation."""
-    records: Dict[int, Dict[str, Any]] = {}
-    seconds = []
-    target = n_trials
-    for _ in range(rounds):
-        t = time.perf_counter()
-        out = run_cli(["hp-tuning", *args, "--n-trials", target], device)
-        seconds.append(time.perf_counter() - t)
-        records.update(trial_records(out))
-        with open(trials_path, encoding="utf-8") as f:
-            trials = json.load(f)
-        counts = (sum(t["state"] == "COMPLETE" for t in trials),
-                  sum(t["state"] == "PRUNED" for t in trials))
-        if done(*counts):
-            break
-        target += 1
-    return {"trials": trials, "n_complete": counts[0], "n_pruned": counts[1],
-            "records": records, "invocation_s": seconds}
 
 
 # ----------------------------------------------------------------------
@@ -274,47 +166,12 @@ def restore_args(best: Dict[str, Any], run_id: str, data_dir: str, log_dir: str,
             "--test-batch-size", 512]
 
 
-def pmgt_run_launches(num_nodes: int, valid_size: float, train_batch: int, test_batch: int,
-                      layers: int, epochs: int, tests: int = 1, export_batch: int = 0,
-                      seed: int = 0) -> Dict[str, int]:
-    """K1–K4 of one PMGT process on the card, from the code (as
-    ``chip_smoke.pmgt_stage_launches``): K2 = L a training step; K1 = L a
-    step, L a validation chunk at each of ``epochs`` evaluations and
-    ``tests`` test evaluations (both over the validation nodes), and L an
-    export chunk of ``export_batch`` nodes."""
-    from pmgt_tpu_torch.graph.container import NUM_SPECIAL_NODES
-    from pmgt_tpu_torch.tasks.pmgt_task import train_valid_split
-
-    nodes = np.arange(NUM_SPECIAL_NODES, num_nodes + NUM_SPECIAL_NODES)
-    train_nodes, valid_nodes = train_valid_split(nodes, valid_size, seed)
-    steps = epochs * (len(train_nodes) // train_batch)
-    chunks = -(-len(valid_nodes) // test_batch)
-    export = -(-num_nodes // export_batch) if export_batch else 0
-    return {"k1": layers * (steps + chunks * (epochs + tests) + export),
-            "k2": layers * steps, "k3": 0, "k4": 0}
-
-
-def expected(device: str, launches: Dict[str, int]) -> Dict[str, int]:
-    """The kernels launch only on the card; the plain route counts none."""
-    return launches if device != "cpu" else dict(NO_LAUNCHES)
-
-
-def num_nodes_of(tg_dir: str) -> int:
-    with open(os.path.join(tg_dir, "meta.json"), encoding="utf-8") as f:
-        return int(json.load(f)["num_nodes"])
-
-
 def make_dataset(ns: argparse.Namespace, tg_dir: str) -> Dict[str, Any]:
-    """Stage 1 (tools/hpo_tg_study.py:155-161): ``make-synthetic --shape TG``
-    at ``ns.signal`` into ``tg_dir`` unless a dataset is there; its stage
-    record."""
-    if not os.path.exists(os.path.join(tg_dir, "meta.json")):
-        run_cli(["make-synthetic", "--out-dir", tg_dir, "--shape", "TG", "--seed", 42,
-                 "--signal", ns.signal], ns.device)
-    return {"stage": "dataset", "path": tg_dir}
+    """Stage 1 (tools/hpo_tg_study.py:155-161)."""
+    return cr.make_tg_dataset(tg_dir, ns.signal, ns.device)
 
 
-def run(ns: argparse.Namespace, rounds: int = ROUNDS) -> Dict[str, Any]:
+def run(ns: argparse.Namespace, rounds: int = cr.ROUNDS) -> Dict[str, Any]:
     """Every stage; writes ``--out`` and returns the report: the JAX
     tool's keys (``work``, ``signal``, ``stages``, ``trials``,
     ``n_complete``, ``n_pruned``, ``best``, ``best_restore_eval``,
@@ -328,33 +185,34 @@ def run(ns: argparse.Namespace, rounds: int = ROUNDS) -> Dict[str, Any]:
     os.makedirs(work, exist_ok=True)
     report: Dict[str, Any] = {"work": work, "signal": ns.signal,
                               "stages": [make_dataset(ns, tg_dir)]}
-    num_nodes = num_nodes_of(tg_dir)
+    num_nodes = cr.num_nodes_of(tg_dir)
     emb_paths = {h: os.path.join(tg_dir, f"node_feat_{h}dim.npy") for h in (32, 64, 128)}
 
     def pretrain(hidden):
         """Stage 2 at ``hidden``: pre-training, then its export."""
         t = time.perf_counter()
         emb = emb_paths[hidden]
-        out = run_cli(pretrain_args(data_dir, log_dir, hidden, ns.pretrain_epochs), ns.device)
-        rid = last_run_id(out)
-        train_launches = launches_of(out)
-        export_launches = launches_of(run_cli(export_args(data_dir, log_dir, hidden, rid, emb),
-                                              ns.device))
-        epochs = evaluations(RunRegistry(log_dir).get_run(rid))
+        out = cr.run_cli(pretrain_args(data_dir, log_dir, hidden, ns.pretrain_epochs),
+                         ns.device)
+        rid = cr.last_run_id(out)
+        train_launches = cr.launches_of(out)
+        export_launches = cr.launches_of(
+            cr.run_cli(export_args(data_dir, log_dir, hidden, rid, emb), ns.device))
+        epochs = cr.evaluations(RunRegistry(log_dir).get_run(rid))
         return {
             "stage": f"pretrain_h{hidden}", "run_id": rid, "emb": emb,
             "seconds": time.perf_counter() - t, "epochs": epochs,
             "launches": {"train": train_launches, "export": export_launches},
             "expected_launches": {
-                "train": expected(ns.device, pmgt_run_launches(num_nodes, 0.2, 256, 512, 5,
-                                                               epochs)),
-                "export": expected(ns.device, pmgt_run_launches(num_nodes, 0.2, 256, 256, 5, 0,
-                                                                tests=0, export_batch=256))}}
+                "train": cr.expected(ns.device, cr.pmgt_run_launches(num_nodes, 0.2, 256, 512,
+                                                                     5, epochs)),
+                "export": cr.expected(ns.device, cr.pmgt_run_launches(
+                    num_nodes, 0.2, 256, 256, 5, 0, tests=0, export_batch=256))}}
 
     def gmf():
         """Stage 3."""
-        out = run_cli(gmf_args(data_dir, log_dir), ns.device)
-        return {"stage": "gmf", "run_id": last_run_id(out), "launches": launches_of(out)}
+        out = cr.run_cli(gmf_args(data_dir, log_dir), ns.device)
+        return {"stage": "gmf", "run_id": cr.last_run_id(out), "launches": cr.launches_of(out)}
 
     # Stages 2 and 3 do not depend on one another: each chain of processes
     # runs beside the others (host bound, the card mostly idle).
@@ -372,7 +230,7 @@ def run(ns: argparse.Namespace, rounds: int = ROUNDS) -> Dict[str, Any]:
         json.dump(train_params(data_dir, log_dir, ns.trial_epochs, emb_paths[32]), f, indent=2)
 
     storage = os.path.join(work, "hpo_storage.db")
-    done = study(["--hp-config-path", space_path, "--train-config-path", params_path,
+    done = cr.study(["--hp-config-path", space_path, "--train-config-path", params_path,
                   "--study-name", STUDY, "--storage-path", storage, "--train-name", "ncf",
                   "--enable-trial-pruning"], ns.n_trials,
                  os.path.join(work, f"{STUDY}_trials.json"),
@@ -382,9 +240,10 @@ def run(ns: argparse.Namespace, rounds: int = ROUNDS) -> Dict[str, Any]:
     best = max((t for t in trials if t["state"] == "COMPLETE"), key=lambda t: t["value"])
     report["best"] = copy.deepcopy(best)
 
-    best_run = tagged_run(log_dir, EXPERIMENT, best["number"])
-    out = run_cli(restore_args(best, best_run.run_id, data_dir, log_dir, emb_paths), ns.device)
-    report["best_restore_eval"] = test_results(out)
+    best_run = cr.tagged_run(log_dir, EXPERIMENT, best["number"])
+    out = cr.run_cli(restore_args(best, best_run.run_id, data_dir, log_dir, emb_paths),
+                     ns.device)
+    report["best_restore_eval"] = cr.test_results(out)
     report["best_run_id"] = best_run.run_id
 
     report["provenance"] = vp.provenance(ns.argv)
@@ -392,13 +251,13 @@ def run(ns: argparse.Namespace, rounds: int = ROUNDS) -> Dict[str, Any]:
     for t in trials:
         if t["state"] != "COMPLETE":
             continue
-        run_ = tagged_run(log_dir, EXPERIMENT, t["number"])
+        run_ = cr.tagged_run(log_dir, EXPERIMENT, t["number"])
         emb = run_.params["item_init_emb_path"]
         report["trial_records"][str(t["number"])] = {
-            **done["records"][t["number"]], "epochs": evaluations(run_),
+            **done["records"][t["number"]], "epochs": cr.evaluations(run_),
             "emb_dim": int(np.load(emb, mmap_mode="r").shape[1])}
     report["invocation_s"] = done["invocation_s"]
-    report["restore_in_process"] = restore_in_process("ncf", best_run, ns.device)
+    report["restore_in_process"] = cr.restore_in_process("ncf", best_run, ns.device)
     report["seconds"] = time.perf_counter() - t0
     with open(ns.out, "w", encoding="utf-8") as f:
         json.dump(report, f, indent=2)
@@ -442,7 +301,7 @@ def compare_to_jax(report: Dict[str, Any], jax: Dict[str, Any]) -> Dict[str, Any
         {"check": "best value >= JAX best - 0.01", "port": report["best"]["value"],
          "floor": jax["best"]["value"] - BEST_SLACK,
          "ok": report["best"]["value"] >= jax["best"]["value"] - BEST_SLACK},
-        restore_check(best_logged, report["restore_in_process"]["results"]),
+        cr.restore_check(best_logged, report["restore_in_process"]["results"]),
     ]
     stages = [s for s in report["stages"] if s["stage"].startswith("pretrain_h")]
     rows.append({"check": "PMGT stages' launches exact",

@@ -120,6 +120,27 @@ def test_random_search_study_writes_the_same_trials_json(tmp_path):
     assert tstudy.best_trial == jstudy.best_trial
 
 
+def test_trial_user_attrs_are_stored_with_the_trial(tmp_path):
+    # hp-tuning stores each trained trial's record this way (Optuna's
+    # ``set_user_attr``); a trial that sets none is stored as the JAX
+    # package's built-in study stores it
+    def objective(pkg, trial):
+        value = _mixed_objective(pkg, trial)
+        if trial.number % 2:
+            trial.set_user_attr("record", {"value": value, "launches": {"k1": trial.number}})
+        return value
+
+    t, _ = _study_json(thpo, tmp_path, "u", [6], objective)
+    j, _ = _study_json(jhpo, tmp_path, "u", [6], _mixed_objective)
+    for rec, ref in zip(t, j):
+        attrs = rec.pop("user_attrs", None)
+        assert rec == ref
+        if rec["number"] % 2 and rec["state"] == "COMPLETE":
+            assert attrs == {"record": {"value": rec["value"], "launches": {"k1": rec["number"]}}}
+        else:
+            assert attrs is None
+
+
 def test_resumed_study_adds_exactly_the_missing_trials(tmp_path):
     t, _ = _study_json(thpo, tmp_path, "r", [4, 9], _mixed_objective)
     j, _ = _study_json(jhpo, tmp_path, "r", [4, 9], _mixed_objective)
@@ -323,7 +344,11 @@ def _make_fake_optuna():
             self.params = {}
             self.state = TrialState.RUNNING
             self.value = None
+            self.user_attrs = {}
             self._rng = rng
+
+        def set_user_attr(self, key, value):
+            self.user_attrs[key] = value
 
         def suggest_categorical(self, name, choices):
             v = choices[int(self._rng.integers(len(choices)))]
@@ -427,5 +452,8 @@ def test_optuna_branch_runs_trials_end_to_end(tmp_path, data_dir, fake_optuna):
     assert all(t.params["factor_num"] == 8 for t in study.trials if t.state == "COMPLETE")
     assert all(t.params["factor_num"] == 4 for t in study.trials if t.state == "PRUNED")
     assert best is study.best_trial and best.value is not None
+    # each trained trial's record is stored with it
+    assert all(t.user_attrs["record"]["value"] == t.value
+               for t in study.trials if t.state == "COMPLETE")
     # a prune arm raises the port's TrialPruned, an optuna.TrialPruned
     assert issubclass(thpo.TrialPruned, fake_optuna.TrialPruned)

@@ -31,6 +31,7 @@ import torch
 from pmgt_tpu_torch.cli import hpo
 from pmgt_tpu_torch.data.artifacts import save_native
 from pmgt_tpu_torch.data.synthetic import make_synthetic_dataset
+from pmgt_tpu_torch.tools import cli_runner as cr
 from pmgt_tpu_torch.tools import hpo_pmgt_study as hpm
 from pmgt_tpu_torch.tools import hpo_tg_study as htg
 
@@ -218,25 +219,25 @@ def test_study_extends_a_trial_at_a_time(monkeypatch, tmp_path):
                        for i in range(n)], f)
         return ""
 
-    monkeypatch.setattr(htg, "run_cli", run_cli)
-    out = htg.study([], 2, path, lambda c, p: c >= 4 and p >= 1, "cpu")
+    monkeypatch.setattr(cr, "run_cli", run_cli)
+    out = cr.study([], 2, path, lambda c, p: c >= 4 and p >= 1, "cpu")
     assert targets == [2, 3, 4, 5] and out["n_complete"] == 5 and out["n_pruned"] == 0
     targets.clear()
-    out = htg.study([], 2, path, lambda c, p: c >= 3, "cpu")
+    out = cr.study([], 2, path, lambda c, p: c >= 3, "cpu")
     assert targets == [2, 3] and out["n_complete"] == 3
 
 
 def test_launch_formula():
     # TG: 1,084 validation nodes (3 chunks of 512) and 9,750 training nodes
     # (38 steps of 256); the export 22 chunks of 512
-    assert htg.pmgt_run_launches(10834, 0.1, 256, 512, 5, 8, tests=0, export_batch=512) == {
+    assert cr.pmgt_run_launches(10834, 0.1, 256, 512, 5, 8, tests=0, export_batch=512) == {
         "k1": 5 * (38 * 8 + 3 * 8 + 22), "k2": 5 * 38 * 8, "k3": 0, "k4": 0}
     # a PMGT trial of HPO_TORCH_TG_PMGT.json: 3 layers, 6 epochs, its test
-    got = htg.pmgt_run_launches(10834, 0.1, 256, 512, 3, 6)
+    got = cr.pmgt_run_launches(10834, 0.1, 256, 512, 3, 6)
     assert got == _record("HPO_TORCH_TG_PMGT.json")["trial_records"]["0"]["launches"]
-    assert chip_smoke.pmgt_stage_launches(10834, 8) == htg.pmgt_run_launches(
+    assert chip_smoke.pmgt_stage_launches(10834, 8) == cr.pmgt_run_launches(
         10834, 0.1, 256, 512, 5, 8, tests=0, export_batch=512)
-    assert htg.expected("cpu", got) == htg.NO_LAUNCHES and htg.expected("cuda", got) == got
+    assert cr.expected("cpu", got) == cr.NO_LAUNCHES and cr.expected("cuda", got) == got
 
 
 def _tg_report(value=0.2596, restore_shift=0.0, pruned_arm=(8, 2), dim=64):
@@ -298,6 +299,20 @@ def test_pmgt_study_bounds(past):
         "COMPLETE trials >= 3", "every trial's launches exact"}
 
 
+def test_frozen_dcn_seed_gap_against_the_records():
+    # the frozen real arm: the port's record (seeds 0-2) against JAX's own
+    # three seeds; a seed run again reproduces the record's value exactly
+    rec = _record("DCN_SENSITIVITY_TORCH_TG_FROZEN.json")["auc_exact"]
+    jax = _record("DCN_SENSITIVITY_TG_FROZEN.json")["auc"]
+    out = chip_smoke.seed_gap({}, rec, jax)
+    assert out["pooled_port"]["n"] == 3 and out["jax"]["n"] == 3
+    assert abs(out["jax"]["mean"] - 0.60813) < 1e-9 and abs(out["jax"]["std"] - 0.00689) < 1e-5
+    assert abs(out["gap"] - 0.01068) < 1e-5 and abs(out["gap_over_se"] - 2.479) < 1e-3
+    more = chip_smoke.seed_gap({0: rec["real_s0"], 3: 0.61}, rec, jax)
+    assert more["reproduced"] == {"0": 0.0} and more["pooled_port"]["n"] == 4
+    assert more["record_seeds"]["0"] == rec["real_s0"]
+
+
 # ---------------------------------------------------------------- end to end
 def _work(tmp_path_factory, name):
     work = str(tmp_path_factory.mktemp(name))
@@ -339,7 +354,7 @@ def test_mlp_study_end_to_end(mlp_study):
     assert best["value"] == rep["best"]["value"] and best["epochs"] == 1
     assert best["emb_dim"] == htg.ARM_DIM[(rep["best"]["params"]["factor_num"],
                                            rep["best"]["params"]["num_layers"])]
-    assert htg.restore_check(best["results"], rep["restore_in_process"]["results"])["ok"]
+    assert cr.restore_check(best["results"], rep["restore_in_process"]["results"])["ok"]
     # the space the study read: JSON, with the exports and the GMF run in it
     with open(os.path.join(work, "hpo_ncf_mlp_pmgt_params.TG.json")) as f:
         text = f.read()
@@ -364,6 +379,6 @@ def test_pmgt_study_end_to_end(pmgt_study):
     assert set(rep["best_restore_eval"]) == set(jax["best_restore_eval"])
     rec = rep["trial_records"][str(rep["best"]["number"])]
     assert rec["hidden_size"] in (32, 64, 128) and 0.0 <= rec["beta"] <= 1.0
-    assert htg.restore_check(rec["results"], rep["restore_in_process"]["results"])["ok"]
+    assert cr.restore_check(rec["results"], rep["restore_in_process"]["results"])["ok"]
     out = hpm.compare_to_jax(rep, jax)
     assert {"every trial's launches exact", "restore launches exact"}.isdisjoint(out["misses"])
