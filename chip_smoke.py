@@ -29,6 +29,12 @@ the training path, and checks what comes out.
     python3 chip_smoke.py --bisect dcn-frozen-seeds [seed ...]
                                           # where a record missed a bound:
                                           # the spread it does not see
+    python3 chip_smoke.py --bisect dcn-frozen-bf16 [seed ...]
+                                          # the frozen DCN real arm with
+                                          # every matmul at the TPU's
+                                          # DEFAULT precision (bf16
+                                          # operands, f32 sums), as the JAX
+                                          # record was taken
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -4342,6 +4348,29 @@ def evidence_main(mode: str) -> int:
 
 
 DCN_FROZEN_SEEDS = (0, 3, 4, 5, 6, 7, 8)  # seed 0 again: does the card reproduce the record?
+DCN_BF16_SEEDS = tuple(range(9))  # the frozen real arm under the TPU's DEFAULT precision
+
+
+def frozen_real_export(work: str):
+    """The record's export: ``--evidence dcn-frozen``'s PMGT stage (seed 0)
+    in ``work``, and its ``real`` variant at ``work/emb_real.npy``;
+    (tool namespace, artifacts, signal, PMGT results, the export's sha256)."""
+    import hashlib
+
+    from pmgt_tpu_torch.tasks import pmgt_task
+    from pmgt_tpu_torch.tools import dcn_sensitivity as ds
+    from pmgt_tpu_torch.tools import validate_pipeline as vp
+    from pmgt_tpu_torch.train.registry import RunRegistry
+
+    ns = ds.parse(["--shape", "TG", "--freeze", "--out", work, "--device", "cuda"])
+    art, signal = ds.make_dataset(ns)
+    emb = os.path.join(work, "node_feat_128dim.npy")
+    pmgt, _ = vp.run_task(pmgt_task, ds.pmgt_args(ns), art, RunRegistry(os.path.join(work, "logs")),
+                          "PMGT", "cuda", export_path=emb)
+    np.save(os.path.join(work, "emb_real.npy"), ds.variants(np.load(emb))["real"])
+    with open(emb, "rb") as f:
+        sha = hashlib.sha256(f.read()).hexdigest()
+    return ns, art, signal, pmgt, sha
 
 
 def dcn_frozen_seeds(work: str, seeds) -> dict:
@@ -4352,34 +4381,120 @@ def dcn_frozen_seeds(work: str, seeds) -> dict:
     record's own spread: the gap of the means against their combined
     standard error, sqrt(σ_port²/n_port + σ_jax²/n_jax). The record's
     bound is not changed by this."""
-    from pmgt_tpu_torch.tasks import dcn_task, pmgt_task
+    from pmgt_tpu_torch.tasks import dcn_task
     from pmgt_tpu_torch.tools import dcn_sensitivity as ds
     from pmgt_tpu_torch.tools import validate_pipeline as vp
     from pmgt_tpu_torch.train.registry import RunRegistry
 
-    ns = ds.parse(["--shape", "TG", "--freeze", "--out", work, "--device", "cuda"])
-    art, signal = ds.make_dataset(ns)
+    ns, art, signal, pmgt, _ = frozen_real_export(work)
     log_dir = os.path.join(work, "logs")
     registry = RunRegistry(log_dir)
-    emb = os.path.join(work, "node_feat_128dim.npy")
-    pmgt, _ = vp.run_task(pmgt_task, ds.pmgt_args(ns), art, registry, "PMGT", "cuda",
-                          export_path=emb)
-    np.save(os.path.join(work, "emb_real.npy"), ds.variants(np.load(emb))["real"])
     auc = {}
     for k in seeds:
         args = ds.dcn_args(ns, k, os.path.join(work, "emb_real.npy"), log_dir)
         res, _ = vp.run_task(dcn_task, args, art, registry, f"dcn_real_s{k}", "cuda")
         auc[k] = res["test/auc"]
         emit({"phase": "bisect_dcn_frozen_seed", "seed": k, "real_frozen_test_auc": auc[k]})
-    with open(os.path.join(HERE, "DCN_SENSITIVITY_TORCH_TG_FROZEN.json")) as f:
-        rec = json.load(f)["auc_exact"]
-    with open(os.path.join(HERE, "DCN_SENSITIVITY_TG_FROZEN.json")) as f:
-        jax = json.load(f)["auc"]
+    rec, jax = dcn_frozen_records()
     return {"what": "frozen real arm of the DCN sensitivity at more downstream seeds on the "
                     "record's export (PMGT seed 0), pooled with the record's seeds 0-2",
             "signal": signal, "pmgt": pmgt,
             "real_frozen_test_auc": {str(k): v for k, v in auc.items()},
             **seed_gap(auc, rec, jax)}
+
+
+def dcn_frozen_records():
+    """(the port's frozen record's ``auc_exact``, the JAX record's ``auc``)."""
+    with open(os.path.join(HERE, "DCN_SENSITIVITY_TORCH_TG_FROZEN.json")) as f:
+        rec = json.load(f)["auc_exact"]
+    with open(os.path.join(HERE, "DCN_SENSITIVITY_TG_FROZEN.json")) as f:
+        return rec, json.load(f)["auc"]
+
+
+def dcn_seed_worker(work: str, seed: int, emulate: bool) -> None:
+    """One frozen ``real`` arm run on the card in this process, on the
+    dataset and export ``dcn_frozen_bf16`` wrote under ``work``; with
+    ``emulate`` inside ``tpu_default_precision``. Writes its AUC, the
+    count of rounded products and its seconds to
+    ``work/<bf16|f32>_s<seed>.json``."""
+    sys.path.insert(0, HERE)
+    import logging
+
+    import torch
+
+    from pmgt_tpu_torch.data.artifacts import load_artifacts
+    from pmgt_tpu_torch.tasks import dcn_task
+    from pmgt_tpu_torch.tools import dcn_sensitivity as ds
+    from pmgt_tpu_torch.tools import validate_pipeline as vp
+    from pmgt_tpu_torch.tools.tpu_precision import tpu_default_precision
+    from pmgt_tpu_torch.train.registry import RunRegistry
+
+    logging.basicConfig(level=logging.INFO)  # each epoch's line in the run's log
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ns = ds.parse(["--shape", "TG", "--freeze", "--out", work, "--device", "cuda"])
+    art = load_artifacts(os.path.join(work, "data"), ds.DATASET)
+    tag = f"{'bf16' if emulate else 'f32'}_s{seed}"
+    log_dir = os.path.join(work, tag)
+    args = ds.dcn_args(ns, seed, os.path.join(work, "emb_real.npy"), log_dir)
+    t0 = time.perf_counter()
+    if emulate:
+        with tpu_default_precision() as mode:
+            res, _ = vp.run_task(dcn_task, args, art, RunRegistry(log_dir), tag, "cuda")
+        calls = mode.calls
+    else:
+        res, _ = vp.run_task(dcn_task, args, art, RunRegistry(log_dir), tag, "cuda")
+        calls = 0
+    with open(os.path.join(work, tag + ".json"), "w") as f:
+        json.dump({"test_auc": res["test/auc"], "rounded_products": calls,
+                   "s": time.perf_counter() - t0}, f)
+
+
+def dcn_frozen_bf16(work: str, seeds) -> dict:
+    """The frozen ``real`` arm of ``--evidence dcn-frozen`` on the record's
+    export with every matmul of the DCN as a TPU runs an f32 dot at XLA's
+    DEFAULT precision (``tools/tpu_precision``: bf16 operands, f32
+    accumulation, forward and both backward products), at ``seeds``, and
+    seed 0 again in f32 as the control that the export is the record's.
+    Each run is a process of its own, all at once (host bound). The bf16
+    seeds alone (not pooled with the f32 record) against the JAX record,
+    taken on a TPU v5e: ``seed_gap`` and the tool's bound max(3σ, 0.005)."""
+    from pmgt_tpu_torch.data.artifacts import save_native
+    from pmgt_tpu_torch.tools import dcn_sensitivity as ds
+    from pmgt_tpu_torch.tools import validate_pipeline as vp
+    from pmgt_tpu_torch.tools.cli_runner import run_processes
+
+    _, art, signal, pmgt, sha = frozen_real_export(work)
+    save_native(os.path.join(work, "data", ds.DATASET), art)
+    runs = [(True, k) for k in seeds] + [(False, 0)]
+    jobs = {}
+    for emulate, k in runs:
+        code = (f"import sys; sys.path.insert(0, {HERE!r}); import chip_smoke; "
+                f"chip_smoke.dcn_seed_worker({work!r}, {k}, {emulate})")
+        tag = f"{'bf16' if emulate else 'f32'}_s{k}"
+        jobs[tag] = ([sys.executable, "-c", code], os.path.join(work, tag + ".log"))
+    seconds = run_processes(jobs)
+    rows = {}
+    for tag in jobs:
+        with open(os.path.join(work, tag + ".json")) as f:
+            rows[tag] = json.load(f)
+        emit({"phase": "bisect_dcn_frozen_bf16_run", "run": tag, **rows[tag]})
+    bf16 = {k: rows[f"bf16_s{k}"]["test_auc"] for k in seeds}
+    rec, jax = dcn_frozen_records()
+    gap = seed_gap(bf16, {}, jax)
+    bound = max(ds.SIGMAS * gap["pooled_port"]["std"], ds.AUC_FLOOR)
+    control = rows["f32_s0"]["test_auc"]
+    return {"what": "frozen real arm of the DCN sensitivity on the record's export (PMGT seed "
+                    "0) with every DCN matmul at the TPU's DEFAULT precision (bf16 operands, "
+                    "f32 accumulation, forward and both backward products), against the JAX "
+                    "record taken on a TPU v5e",
+            "signal": signal, "pmgt": pmgt, "export_sha256": sha,
+            "bf16_real_frozen_test_auc": {str(k): v for k, v in bf16.items()},
+            "rounded_products": {tag: r["rounded_products"] for tag, r in rows.items()},
+            "f32_control_s0": {"test_auc": control, "record": rec["real_s0"],
+                               "minus_record": control - rec["real_s0"]},
+            "run_s": seconds, **gap, "bound": bound,
+            "bound_rule": "max(3 * sample sigma of the bf16 seeds, 0.005), the tool's own",
+            "within_bound_of_jax": abs(gap["gap"]) <= bound}
 
 
 def seed_gap(auc: dict, record: dict, jax: dict) -> dict:
@@ -4413,7 +4528,9 @@ def bisect_main(what: str, seed: int = 0, seeds=DCN_FROZEN_SEEDS) -> int:
     one export does not see. ``--bisect neumf-pre <seed>``: ``--evidence
     neumf-pre`` (ladder 1e-3, 1e-4) with every run at downstream seed
     ``seed``: how far the fine-tuned arms move with the seed, which a record
-    of one run per arm does not see. Each writes
+    of one run per arm does not see. ``--bisect dcn-frozen-bf16 [seed
+    ...]``: ``dcn_frozen_bf16`` at ``seeds`` (default ``DCN_BF16_SEEDS``),
+    into ``outputs/BISECT_TORCH_DCN_FROZEN_BF16.json``. Each writes
     ``outputs/BISECT_TORCH_<what>[_s<seed>].json``."""
     if one_card_setup() is None:
         return 1
@@ -4429,6 +4546,9 @@ def bisect_main(what: str, seed: int = 0, seeds=DCN_FROZEN_SEEDS) -> int:
     if what == "dcn-frozen-seeds":
         record = dcn_frozen_seeds(work, seeds)
         name = "BISECT_TORCH_DCN_FROZEN_SEEDS.json"
+    elif what == "dcn-frozen-bf16":
+        record = dcn_frozen_bf16(work, seeds)
+        name = "BISECT_TORCH_DCN_FROZEN_BF16.json"
     elif what == "dcn-frozen":
         from pmgt_tpu_torch.tasks import dcn_task, pmgt_task
         from pmgt_tpu_torch.tools import dcn_sensitivity as ds
@@ -4863,13 +4983,15 @@ def cli() -> int:
     if argv[:2] == ["--bisect", "dcn-frozen-seeds"] and all(a.isdigit() for a in argv[2:]):
         seeds = tuple(map(int, argv[2:])) or DCN_FROZEN_SEEDS
         return bisect_main("dcn-frozen-seeds", seeds=seeds)
+    if argv[:2] == ["--bisect", "dcn-frozen-bf16"] and all(a.isdigit() for a in argv[2:]):
+        return bisect_main("dcn-frozen-bf16", seeds=tuple(map(int, argv[2:])) or DCN_BF16_SEEDS)
     if argv[:2] == ["--bisect", "neumf-pre"] and len(argv) == 3 and argv[2].isdigit():
         return bisect_main("neumf-pre", int(argv[2]))
     if argv:
         print(f"unknown arguments {argv}: none, --scale, --quality VG|TG [seed ...], "
               f"--quality TG pmgt_ncf [seed ...], --quality int8, "
               f"--evidence {'|'.join(EVIDENCE)}, --bisect dcn-frozen|neumf-pre SEED, "
-              f"--bisect dcn-frozen-seeds [seed ...], "
+              f"--bisect dcn-frozen-seeds|dcn-frozen-bf16 [seed ...], "
               f"or --multi-card "
               f"[{'] ['.join(MULTI_CARD_JOBS)}]", file=sys.stderr)
         return 2

@@ -29,6 +29,7 @@ ROUNDS = 4  # hp-tuning invocations at most (tools/hpo_tg_study.py:226)
 RESTORE_TOL = 1e-5  # the restored best checkpoint against its trial's logged results
 NO_LAUNCHES = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
 SEED_THREADS = 2  # CPU threads of each process fanned out on the card
+POLL_S = 0.05  # how often run_processes looks for processes that exited
 
 
 # ----------------------------------------------------------------------
@@ -53,28 +54,35 @@ def run_processes(jobs: Dict[Any, Tuple[List[str], str]]) -> Dict[Any, float]:
     """Every job ``{key: (argv, log path)}`` at once, each a process of its
     own from the repo's root with ``SEED_THREADS`` CPU threads and its
     output in its log (host bound, the card mostly idle); waits for all
-    and returns each one's wall seconds. A process that fails raises with
-    its log's tail; every process is stopped before this returns."""
+    and returns each one's wall seconds, taken when that process exits
+    (polled every ``POLL_S``), in the jobs' order. A process that fails
+    raises with its log's tail as soon as it is seen to exit; every
+    process is stopped before this returns."""
     env = dict(os.environ, OMP_NUM_THREADS=str(SEED_THREADS), MKL_NUM_THREADS=str(SEED_THREADS))
-    procs, seconds = [], {}
+    procs, seconds = {}, {}
     try:
         for key, (argv, log_path) in jobs.items():
             with open(log_path, "w") as log:
-                procs.append((key, log_path, time.perf_counter(),
+                procs[key] = (log_path, time.perf_counter(),
                               subprocess.Popen(argv, cwd=REPO, env=env, stdout=log,
-                                               stderr=subprocess.STDOUT)))
-        for key, log_path, t0, p in procs:
-            rc = p.wait()
-            seconds[key] = time.perf_counter() - t0
-            if rc != 0:
-                with open(log_path) as f:
-                    raise RuntimeError(f"{key} failed (rc {rc}):\n{f.read()[-3000:]}")
+                                               stderr=subprocess.STDOUT))
+        while len(seconds) < len(procs):
+            for key, (log_path, t0, p) in procs.items():
+                if key in seconds or p.poll() is None:
+                    continue
+                seconds[key] = time.perf_counter() - t0
+                if p.returncode != 0:
+                    with open(log_path) as f:
+                        raise RuntimeError(f"{key} failed (rc {p.returncode}):\n"
+                                           f"{f.read()[-3000:]}")
+            if len(seconds) < len(procs):
+                time.sleep(POLL_S)
     finally:
-        for *_, p in procs:
+        for *_, p in procs.values():
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    return seconds
+    return {key: seconds[key] for key in jobs}
 
 
 def last_run_id(out: str) -> str:

@@ -133,7 +133,7 @@ def test_port_sources_import_no_jax_and_no_pmgt_tpu():
                 "tools/validate_pipeline.py", "tools/quality_int8_tables.py",
                 "tools/reproduce_published.py", "tools/dcn_sensitivity.py",
                 "tools/neumf_pre_bisect.py", "tools/hpo_tg_study.py",
-                "tools/hpo_pmgt_study.py", "tools/cli_runner.py"):
+                "tools/hpo_pmgt_study.py", "tools/cli_runner.py", "tools/tpu_precision.py"):
         assert os.path.join(ROOT, "pmgt_tpu_torch", new) in files
     bad, tried = [], set()
     for p in files:

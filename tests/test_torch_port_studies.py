@@ -10,6 +10,9 @@
 - ``tools/hpo_pmgt_study``: the trial configuration and the restore.
 - The extension loop, ``compare_to_jax`` at each bound and just past it,
   and the launch formula against a count by hand and the card's record.
+- ``cli_runner.run_processes``: each process timed at its own exit (two
+  started together, 0.1 s and 1.5 s), and a failed one raising with its
+  log while the others are stopped.
 - Both studies end to end on a small dataset written in advance into
   ``<work>/data/TG``: one trial of one epoch, one ``hp-tuning`` round;
   the JAX tools' keys with finite values, and each restore equal to its
@@ -23,6 +26,7 @@ import json
 import math
 import os
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -311,6 +315,28 @@ def test_frozen_dcn_seed_gap_against_the_records():
     more = chip_smoke.seed_gap({0: rec["real_s0"], 3: 0.61}, rec, jax)
     assert more["reproduced"] == {"0": 0.0} and more["pooled_port"]["n"] == 4
     assert more["record_seeds"]["0"] == rec["real_s0"]
+
+
+def test_run_processes_times_each_process_at_its_exit(tmp_path):
+    # started together, the 0.1 s process is timed when it exits, not when
+    # the 1.5 s one started before it is reaped
+    sleep = "import time; time.sleep({})"
+    jobs = {"slow": ([sys.executable, "-c", sleep.format(1.5)], str(tmp_path / "slow.log")),
+            "fast": ([sys.executable, "-c", sleep.format(0.1)], str(tmp_path / "fast.log"))}
+    seconds = cr.run_processes(jobs)
+    assert list(seconds) == ["slow", "fast"]
+    assert seconds["fast"] < 1.0 <= 1.5 <= seconds["slow"]
+
+
+def test_run_processes_raises_when_a_process_fails(tmp_path):
+    t0 = time.perf_counter()
+    jobs = {"long": ([sys.executable, "-c", "import time; time.sleep(30)"],
+                     str(tmp_path / "long.log")),
+            "bad": ([sys.executable, "-c", "import sys; print('boom'); sys.exit(3)"],
+                    str(tmp_path / "bad.log"))}
+    with pytest.raises(RuntimeError, match="bad failed \\(rc 3\\)(.|\n)*boom"):
+        cr.run_processes(jobs)
+    assert time.perf_counter() - t0 < 15  # the long process was stopped
 
 
 # ---------------------------------------------------------------- end to end
