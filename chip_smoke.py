@@ -358,21 +358,18 @@ KERNEL_NAMES = {"k1": "dual_attention_fwd_kernel",
                 "k2": "dual_attention_bwd_kernel"}
 
 
-def _counters():
-    """The four kernels' launch counters: K1, K2, K3, K4."""
-    from pmgt_tpu_torch.ops import dual_attention as da
-
-    return (da.dual_attention_sm, da.dual_attention_sm_backward,
-            da.dual_attention_bm_forward, da.dual_attention_bm_backward)
-
-
 def zero_launches() -> None:
-    for c in _counters():
-        c.launches = 0
+    """Zero the program's counters, the four kernels' launches among them."""
+    from pmgt_tpu_torch.core import tracing
+
+    tracing.reset_counters()
 
 
 def read_launches() -> dict:
-    return dict(zip(("k1", "k2", "k3", "k4"), (c.launches for c in _counters())))
+    """The four kernels' launches since the last ``zero_launches()``."""
+    from pmgt_tpu_torch.ops.dual_attention import launch_counts
+
+    return launch_counts()
 
 
 def emit(obj) -> None:
@@ -1240,11 +1237,6 @@ def run_slice(task, label: str) -> dict:
     times and the K1 launches of the run."""
     import torch
 
-    from pmgt_tpu_torch.ops.dual_attention import (
-        dual_attention_sm,
-        dual_attention_sm_backward,
-    )
-
     t0 = time.perf_counter()
     for tag in (("valid",), ("inference",)):
         task._get_ctx(tag)
@@ -1264,8 +1256,7 @@ def run_slice(task, label: str) -> dict:
     emb = task.export_embeddings()
     torch.cuda.synchronize()
     export_s = time.perf_counter() - t0
-    launches = dual_attention_sm.launches
-    k2_launches = dual_attention_sm_backward.launches
+    launches, k2_launches = read_launches()["k1"], read_launches()["k2"]
 
     # Where the time goes: one profiled evaluate and export (not counted).
     busy = profile_phases((("evaluate", lambda: task.evaluate("valid")),
@@ -1299,11 +1290,6 @@ def run_training(task) -> dict:
     loss falls and K1 == K2 == 5 launches per micro-step."""
     import torch
 
-    from pmgt_tpu_torch.ops.dual_attention import (
-        dual_attention_sm,
-        dual_attention_sm_backward,
-    )
-
     before = task.evaluate("valid")
     t0 = time.perf_counter()
     task.on_epoch_start(0)
@@ -1315,7 +1301,7 @@ def run_training(task) -> dict:
     losses = task.train_epoch(0)
     torch.cuda.synchronize()
     epoch_ms = (time.perf_counter() - t0) * 1e3
-    k1, k2 = dual_attention_sm.launches, dual_attention_sm_backward.launches
+    k1, k2 = read_launches()["k1"], read_launches()["k2"]
 
     losses = losses.cpu().numpy()
     after = task.evaluate("valid")
@@ -1379,11 +1365,6 @@ def compare_training_routes(make_task, phase: str = "train_route_check") -> dict
     profiler (not counted)."""
     import torch
 
-    from pmgt_tpu_torch.ops.dual_attention import (
-        dual_attention_sm,
-        dual_attention_sm_backward,
-    )
-
     kern, plain = make_task("pallas"), make_task("xla")
     plain.model.load_state_dict(kern.model.state_dict())
     kern.on_epoch_start(0)
@@ -1402,8 +1383,7 @@ def compare_training_routes(make_task, phase: str = "train_route_check") -> dict
             out.append(metrics["loss"])
         losses[name] = torch.stack(out).cpu().numpy()
         torch.cuda.synchronize()
-        launches[name] = (dual_attention_sm.launches,
-                          dual_attention_sm_backward.launches)
+        launches[name] = (read_launches()["k1"], read_launches()["k2"])
         fourth[name] = (task, batches[3])
     # one profiler session for both routes' fourth step
     busy = profile_phases(tuple(

@@ -129,7 +129,12 @@ def _add_common_options(p: argparse.ArgumentParser) -> None:
     a("--process-id", type=int, default=None,
       help="multi-host: this host's index (or JAX_PROCESS_ID)")
     a("--profile-dir", default=None,
-      help="write a torch.profiler trace of the training to this directory")
+      help="write a torch.profiler trace of the training to this directory; it "
+      "holds the program's spans: pmgt:epoch, pmgt:evaluate, pmgt:checkpoint, "
+      "pmgt:refresh (nodes) with pmgt:contexts (nodes), pmgt:pairs (nodes) and "
+      "pmgt:negatives, pmgt:batch, pmgt:step (examples) with pmgt:forward "
+      "(lanes), pmgt:backward and pmgt:optimizer; the counts are in the "
+      "records of pmgt_tpu_torch.core.tracing")
     a("--swa-start", type=int, default=None,
       help="enable Stochastic Weight Averaging from this epoch")
     a("--eval-init", action="store_true",

@@ -28,10 +28,9 @@ operands are [S, N, d] with keep masks [S, N, S]; batch-major operands are
   (K1 seq-major, K3 batch-major: one kernel, two stride sets) and
   ``csrc/dual_attention_bwd.cu`` (K2 and K4, likewise). They build no
   autograd node, so they refuse inputs that require grad while grad is
-  enabled. Launch counters: ``dual_attention_sm.launches`` (K1),
-  ``dual_attention_sm_backward.launches`` (K2),
-  ``dual_attention_bm_forward.launches`` (K3) and
-  ``dual_attention_bm_backward.launches`` (K4); ``launch_counts()`` reads
+  enabled. Each card launch adds one to its counter of
+  ``core/tracing.py``: ``k1_launches`` (K1), ``k2_launches`` (K2),
+  ``k3_launches`` (K3) and ``k4_launches`` (K4); ``launch_counts()`` reads
   the four.
 - ``DualAttentionSm`` / ``dual_attention_sm`` and ``DualAttentionBm``: the
   differentiable ops. They save (q, k, v, c, mask, m1, m2), as
@@ -51,6 +50,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from pmgt_tpu_torch.core import tracing
 from pmgt_tpu_torch.core.mesh import rand
 from pmgt_tpu_torch.ops import build
 
@@ -405,7 +405,7 @@ def dual_attention_sm_forward(
         )
     out = _launch_forward(q, k, v, c, mask_bs, m1, m2, beta, keep,
                           use_dropout, batch_major=False)
-    dual_attention_sm.launches += 1
+    tracing.count("k1_launches")
     return out
 
 
@@ -432,11 +432,8 @@ def dual_attention_sm_backward(
         )
     grads = _launch_backward(q, k, v, c, mask_bs, m1, m2, g, beta, keep,
                              use_dropout, batch_major=False)
-    dual_attention_sm_backward.launches += 1
+    tracing.count("k2_launches")
     return grads
-
-
-dual_attention_sm_backward.launches = 0
 
 
 def dual_attention_bm_forward(
@@ -461,11 +458,8 @@ def dual_attention_bm_forward(
         )
     out = _launch_forward(q, k, v, c, mask_bs, m1, m2, beta, keep,
                           use_dropout, batch_major=True)
-    dual_attention_bm_forward.launches += 1
+    tracing.count("k3_launches")
     return out
-
-
-dual_attention_bm_forward.launches = 0
 
 
 def dual_attention_bm_backward(
@@ -491,11 +485,8 @@ def dual_attention_bm_backward(
         )
     grads = _launch_backward(q, k, v, c, mask_bs, m1, m2, g, beta, keep,
                              use_dropout, batch_major=True)
-    dual_attention_bm_backward.launches += 1
+    tracing.count("k4_launches")
     return grads
-
-
-dual_attention_bm_backward.launches = 0
 
 
 # ----------------------------------------------------------------------
@@ -567,9 +558,6 @@ def dual_attention_sm(
     )
 
 
-dual_attention_sm.launches = 0
-
-
 def dual_attention_pallas(
     query: torch.Tensor,
     key: torch.Tensor,
@@ -615,5 +603,4 @@ def dual_attention_pallas(
 
 def launch_counts() -> dict:
     """The four kernels' launch counters: {"k1", "k2", "k3", "k4"}."""
-    return {"k1": dual_attention_sm.launches, "k2": dual_attention_sm_backward.launches,
-            "k3": dual_attention_bm_forward.launches, "k4": dual_attention_bm_backward.launches}
+    return {k: tracing.counter(k + "_launches") for k in ("k1", "k2", "k3", "k4")}

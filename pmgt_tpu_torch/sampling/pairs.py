@@ -20,6 +20,7 @@ import torch
 
 from pmgt_tpu_torch.core.config import SamplingConfig
 from pmgt_tpu_torch.core.mesh import rand
+from pmgt_tpu_torch.core.tracing import span
 from pmgt_tpu_torch.graph.container import NUM_SPECIAL_NODES, DeviceGraph
 from pmgt_tpu_torch.sampling.mcn import (
     complement_rank_select,
@@ -205,17 +206,18 @@ def sample_all_contexts(
     chunk only through where the chunks start. ``draws`` replaces the
     generator: ``draws[i]`` is chunk i's per-hop uniforms (see
     ``sample_context``), e.g. the JAX sampler's ``split(key, c)[i]``
-    draws of that chunk's rows."""
+    draws of that chunk's rows. Each chunk is a ``contexts`` span."""
     if chunk < 1:
         raise ValueError(f"refresh chunk must be at least 1, got {chunk}")
     device = graph.device
     all_nodes = torch.arange(num_total, device=device)
     ids_parts, mask_parts = [], []
     for i, start in enumerate(range(0, num_total, chunk)):
-        ids, mask = sample_context(
-            graph, all_nodes[start : start + chunk], cfg, generator,
-            None if draws is None else draws[i],
-        )
+        with span("contexts", nodes=min(chunk, num_total - start)):
+            ids, mask = sample_context(
+                graph, all_nodes[start : start + chunk], cfg, generator,
+                None if draws is None else draws[i],
+            )
         ids_parts.append(ids)
         mask_parts.append(mask)
     ids = torch.cat(ids_parts)
@@ -234,17 +236,15 @@ def sample_all_pairs(
     chunk_size: int = 2048,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Pos/neg pairs for ALL nodes once → tables [N_total, P]; the special
-    rows are masked out."""
+    rows are masked out. Each chunk of ``chunk_size`` nodes is a ``pairs``
+    span."""
     device = graph.device
-    parts = [
-        sample_pairs(
-            graph,
-            torch.arange(start, min(start + chunk_size, num_total),
-                         device=device),
-            cfg, is_training, generator,
-        )
-        for start in range(0, num_total, chunk_size)
-    ]
+    parts = []
+    for start in range(0, num_total, chunk_size):
+        stop = min(start + chunk_size, num_total)
+        with span("pairs", nodes=stop - start):
+            parts.append(sample_pairs(graph, torch.arange(start, stop, device=device),
+                                      cfg, is_training, generator))
     nodes, labels, valid = (torch.cat(p) for p in zip(*parts))
     valid[:NUM_SPECIAL_NODES] = 0.0
     return nodes, labels, valid

@@ -58,6 +58,7 @@ from pmgt_tpu_torch.core.mesh import (
     rank_chunks,
     replicate,
 )
+from pmgt_tpu_torch.core.tracing import span
 from pmgt_tpu_torch.data.interactions import (
     InteractionData,
     build_eval_candidates,
@@ -151,16 +152,18 @@ class InteractionTaskBase:
     # engine Task protocol
     # ------------------------------------------------------------------
     def on_epoch_start(self, epoch: int) -> None:
-        """Draw the epoch's examples (no-op if they are this epoch's)."""
+        """Draw the epoch's examples (no-op if they are this epoch's), in a
+        ``negatives`` span."""
         if self._epoch_arrays_epoch == epoch:
             return
-        users, items, labels = epoch_training_arrays(
-            self.train_data, self.num_ng, seeded(self.args.seed * 7_001 + epoch, self.device)
-        )
-        perm = np.random.default_rng(self.args.seed * 11 + epoch).permutation(len(users))
-        self._epoch_arrays = tuple(
-            torch.as_tensor(a[perm], device=self.device) for a in (users, items, labels)
-        )
+        with span("negatives"):
+            users, items, labels = epoch_training_arrays(
+                self.train_data, self.num_ng,
+                seeded(self.args.seed * 7_001 + epoch, self.device))
+            perm = np.random.default_rng(self.args.seed * 11 + epoch).permutation(len(users))
+            self._epoch_arrays = tuple(
+                torch.as_tensor(a[perm], device=self.device) for a in (users, items, labels)
+            )
         self._epoch_arrays_epoch = epoch
 
     def state_dict(self) -> Dict[str, Any]:
@@ -180,14 +183,17 @@ class InteractionTaskBase:
 
     def train_batches(self, epoch: int) -> Iterator[Tuple[torch.Tensor, ...]]:
         """(users, items, labels, generator) for each full batch of the
-        epoch (a partial last batch is dropped)."""
+        epoch (a partial last batch is dropped). Each batch's making is a
+        ``batch`` span that closes before the batch is handed over."""
         self.on_epoch_start(epoch)
         users, items, labels = self._epoch_arrays
         bs = self.args.train_batch_size
         for i in range(len(users) // bs):
-            sl = slice(i * bs, (i + 1) * bs)
-            gen = seeded(self.args.seed * 13 + epoch * 100_003 + i, self.device)
-            yield users[sl], items[sl], labels[sl], gen
+            with span("batch"):
+                sl = slice(i * bs, (i + 1) * bs)
+                gen = seeded(self.args.seed * 13 + epoch * 100_003 + i, self.device)
+                batch = users[sl], items[sl], labels[sl], gen
+            yield batch
 
     def train_logits(self, users, items, generator) -> torch.Tensor:
         return self.model(users, items, deterministic=False, generator=generator)
@@ -200,7 +206,8 @@ class InteractionTaskBase:
         every micro-batch; the ranks' shares are equal, so the global mean
         is the mean of the ranks' means and each rank's part is its mean
         over the world size. Returns the mean loss on the device, the same
-        on every rank."""
+        on every rank. Spans: each micro-batch's scoring and loss is a
+        ``forward`` (lanes: its pairs), its gradient a ``backward``."""
         users, items, labels, gen = batch
         mesh, accum = self.mesh, self.args.accumulation_step
         m = users.shape[0] // accum
@@ -209,8 +216,10 @@ class InteractionTaskBase:
         self.optimizer.zero_grad()
         total = None
         for u, i, lab in zip(*(x.reshape(accum, -1)[:, share] for x in (users, items, labels))):
-            loss = torch.mean(bce_with_logits(self.train_logits(u, i, gen), lab)) / mesh.size
-            (loss / accum).backward()
+            with span("forward", lanes=int(u.shape[0])):
+                loss = torch.mean(bce_with_logits(self.train_logits(u, i, gen), lab)) / mesh.size
+            with span("backward"):
+                (loss / accum).backward()
             total = loss.detach() if total is None else total + loss.detach()
         all_reduce_grads(mesh, self.model.parameters())
         total = all_reduce(mesh, total)
@@ -221,8 +230,11 @@ class InteractionTaskBase:
         return total / accum
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
-        loss = self.accumulate_gradients(batch)
-        self.optimizer.step()
+        """One optimizer step on a batch of ``train_batches``, in a
+        ``step`` span."""
+        with span("step", examples=int(batch[0].shape[0])):
+            loss = self.accumulate_gradients(batch)
+            self.optimizer.step()
         return {"loss": loss}
 
     def train_epoch(self, epoch: int) -> torch.Tensor:
@@ -243,27 +255,33 @@ class InteractionTaskBase:
     def _merge_chunk(self, score: Scorer, users, pos, start: int, chunk: int,
                      k: int, exclude: bool, carry):
         """Score the users [B] against items [start, start + chunk) and
-        merge them into ``carry`` = (ids [B, k], scores [B, k])."""
+        merge them into ``carry`` = (ids [B, k], scores [B, k]). Spans: the
+        tile (items: those of the catalogue, past-the-end padding left out),
+        inside it ``forward`` (the scoring of its users × chunk lanes) and
+        ``merge`` (the rest)."""
         data = self.train_data
         dev = users.device
-        items = start + torch.arange(chunk, device=dev)
         b = users.shape[0]
-        u = torch.clamp(users, max=max(data.num_users - 1, 0))[:, None].expand(b, chunk)
-        it = torch.clamp(items, max=data.num_items - 1)[None, :].expand(b, chunk)
-        logits = score(u.reshape(-1), it.reshape(-1)).reshape(b, chunk).float()
-        neg_inf = torch.tensor(float("-inf"), device=dev)
-        if exclude:
-            # Positives outside the chunk (and the num_items padding) go
-            # to a spare column that is dropped.
-            idx = pos - start
-            idx = torch.where((idx >= 0) & (idx < chunk), idx, chunk)
-            padded = torch.cat([logits, torch.zeros(b, 1, device=dev)], dim=1)
-            logits = padded.scatter(1, idx, neg_inf.expand(idx.shape))[:, :chunk]
-        logits = torch.where(items[None, :] < data.num_items, logits, neg_inf)
-        all_ids = torch.cat([carry[0], items[None, :].expand(b, chunk)], dim=1)
-        all_sc = torch.cat([carry[1], logits], dim=1)
-        best, idx = topk_lowest_index(all_sc, k)
-        return torch.gather(all_ids, 1, idx), best
+        with span("tile", items=max(min(chunk, int(data.num_items) - start), 0)):
+            with span("forward", lanes=b * chunk):
+                items = start + torch.arange(chunk, device=dev)
+                u = torch.clamp(users, max=max(data.num_users - 1, 0))[:, None].expand(b, chunk)
+                it = torch.clamp(items, max=data.num_items - 1)[None, :].expand(b, chunk)
+                logits = score(u.reshape(-1), it.reshape(-1)).reshape(b, chunk).float()
+            with span("merge"):
+                neg_inf = torch.tensor(float("-inf"), device=dev)
+                if exclude:
+                    # Positives outside the chunk (and the num_items padding)
+                    # go to a spare column that is dropped.
+                    idx = pos - start
+                    idx = torch.where((idx >= 0) & (idx < chunk), idx, chunk)
+                    padded = torch.cat([logits, torch.zeros(b, 1, device=dev)], dim=1)
+                    logits = padded.scatter(1, idx, neg_inf.expand(idx.shape))[:, :chunk]
+                logits = torch.where(items[None, :] < data.num_items, logits, neg_inf)
+                all_ids = torch.cat([carry[0], items[None, :].expand(b, chunk)], dim=1)
+                all_sc = torch.cat([carry[1], logits], dim=1)
+                best, idx = topk_lowest_index(all_sc, k)
+                return torch.gather(all_ids, 1, idx), best
 
     def positives(self) -> np.ndarray:
         """[num_users, P] int32: each user's training positives (rows of
@@ -281,13 +299,14 @@ class InteractionTaskBase:
                     item_chunk: int, exclude_train: bool = True):
         """The top-k (ids [B, k], scores [B, k]) of users [B] (positives
         ``pos`` [B, P]) over the whole catalogue, ``item_chunk`` items at
-        a time (k <= item_chunk <= num_items)."""
+        a time (k <= item_chunk <= num_items), in a ``serve`` span."""
         b, dev = users.shape[0], users.device
-        carry = (torch.zeros(b, k, dtype=torch.int64, device=dev),
-                 torch.full((b, k), float("-inf"), device=dev))
-        for start in range(0, int(self.train_data.num_items), item_chunk):
-            carry = self._merge_chunk(score, users, pos, start, item_chunk, k,
-                                      exclude_train, carry)
+        with span("serve", users=b):
+            carry = (torch.zeros(b, k, dtype=torch.int64, device=dev),
+                     torch.full((b, k), float("-inf"), device=dev))
+            for start in range(0, int(self.train_data.num_items), item_chunk):
+                carry = self._merge_chunk(score, users, pos, start, item_chunk, k,
+                                          exclude_train, carry)
         return carry
 
     @torch.no_grad()

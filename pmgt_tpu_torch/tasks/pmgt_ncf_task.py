@@ -40,6 +40,7 @@ from pmgt_tpu_torch.core.config import (
 )
 from pmgt_tpu_torch.core.mesh import place_graph
 from pmgt_tpu_torch.core.quant import prepare_feat_tables
+from pmgt_tpu_torch.core.tracing import span
 from pmgt_tpu_torch.data.artifacts import load_artifacts
 from pmgt_tpu_torch.graph.container import NUM_SPECIAL_NODES
 from pmgt_tpu_torch.models.pmgt_ncf import PMGT_NCF
@@ -144,11 +145,14 @@ class PMGTNCFTask(InteractionTaskBase):
 
     def on_epoch_start(self, epoch: int) -> None:
         """The epoch's examples and context table (no-op if they are this
-        epoch's)."""
-        super().on_epoch_start(epoch)
-        if self._train_ctx_epoch != epoch:
-            self._train_ctx = self._draw_ctx(self.args.seed * 55_001 + epoch)
-            self._train_ctx_epoch = epoch
+        epoch's), in a ``refresh`` span."""
+        if self._epoch_arrays_epoch == epoch and self._train_ctx_epoch == epoch:
+            return
+        with span("refresh", nodes=self.sampling.num_total):
+            super().on_epoch_start(epoch)
+            if self._train_ctx_epoch != epoch:
+                self._train_ctx = self._draw_ctx(self.args.seed * 55_001 + epoch)
+                self._train_ctx_epoch = epoch
 
     def eval_ctx(self) -> Ctx:
         """The fixed evaluation/serving context draw (drawn on first use)."""

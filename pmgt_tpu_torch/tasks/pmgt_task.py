@@ -91,6 +91,7 @@ from pmgt_tpu_torch.core.mesh import (
     replicate,
 )
 from pmgt_tpu_torch.core.quant import prepare_feat_tables, table_nbytes
+from pmgt_tpu_torch.core.tracing import span
 from pmgt_tpu_torch.data.artifacts import DatasetArtifacts, load_artifacts
 from pmgt_tpu_torch.data.split import train_test_split
 from pmgt_tpu_torch.graph.container import NUM_SPECIAL_NODES
@@ -252,10 +253,12 @@ class PMGTTask:
     def _get_ctx(self, tag) -> PhaseCtx:
         """The phase's cached draw (drawn on first use). ``("train",
         epoch)`` lives in one evicting slot; the eval and export draws are
-        kept apart, so a training retag never evicts them."""
+        kept apart, so a training retag never evicts them. A training
+        draw is a ``refresh`` span."""
         if tag[0] == "train":
             if self._train_ctx_tag != tag:
-                self._train_ctx = self._draw_ctx(tag)
+                with span("refresh", nodes=self.sampling.num_total):
+                    self._train_ctx = self._draw_ctx(tag)
                 self._train_ctx_tag = tag
             return self._train_ctx
         if tag not in self._phase_ctx_cache:
@@ -308,20 +311,23 @@ class PMGTTask:
     def train_batches(self, epoch: int) -> Iterator[Tuple[torch.Tensor, torch.Generator]]:
         """(targets [train_batch_size] on the device, the step's
         generator) for each full batch of the epoch's schedule. The
-        schedule goes to the device in one copy."""
+        schedule goes to the device in one copy. Each batch's making is a
+        ``batch`` span that closes before the batch is handed over."""
         bs = self.args.train_batch_size
-        ids = self._epoch_schedule(epoch)
-        n_full = len(ids) // bs
-        if n_full == 0:
-            return
-        sched = torch.as_tensor(
-            ids[: n_full * bs].reshape(n_full, bs), device=self.device
-        )
+        with span("batch"):
+            ids = self._epoch_schedule(epoch)
+            n_full = len(ids) // bs
+            if n_full:
+                sched = torch.as_tensor(
+                    ids[: n_full * bs].reshape(n_full, bs), device=self.device
+                )
         for i in range(n_full):
-            self._step_count += 1
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed((self.args.seed * 7_919 + self._step_count) % 2**32)
-            yield sched[i], gen
+            with span("batch"):
+                self._step_count += 1
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed((self.args.seed * 7_919 + self._step_count) % 2**32)
+                batch = sched[i], gen
+            yield batch
 
     def sampling_generators(self, step_generator: torch.Generator):
         """The three per-step sampling streams of ``--no-ctx-cache``
@@ -343,34 +349,42 @@ class PMGTTask:
         loss scaled by 1/accumulation_step, so ``.grad`` holds the mean of
         the micro-batch gradients (summed over the ranks, each rank taking
         its share of every micro-batch). Returns the mean loss, gsr and nfr
-        as device scalars, the same on every rank."""
+        as device scalars, the same on every rank. Spans: each micro-batch's
+        assembly is a ``batch``, its encoder pass and loss a ``forward``
+        (lanes: targets, pairs and NFR-masked targets) and its gradient a
+        ``backward``."""
         mesh = self.mesh
         accum = self.args.accumulation_step
         micros = targets.reshape(accum, -1)
         m = micros.shape[1]
         share = local_slice(mesh, m)
+        b, p = share.stop - share.start, self.sampling.max_total_samples
         if self.use_ctx_cache:
             if self._train_ctx is None:
                 self._get_ctx(("train", 0))
             ctx_ids, ctx_mask, pairs = self._train_ctx
         else:
-            b, p = share.stop - share.start, self.sampling.max_total_samples
-            g_ctx, g_pairs, g_pair_ctx = self.sampling_generators(generator)
-            sampling = (lane_draws(mesh, g_ctx, [(m, b)]), lane_draws(mesh, g_pairs, [(m, b)]),
-                        lane_draws(mesh, g_pair_ctx, [(m * p, b * p)]))
+            with span("batch"):
+                g_ctx, g_pairs, g_pair_ctx = self.sampling_generators(generator)
+                sampling = (lane_draws(mesh, g_ctx, [(m, b)]),
+                            lane_draws(mesh, g_pairs, [(m, b)]),
+                            lane_draws(mesh, g_pair_ctx, [(m * p, b * p)]))
         self.optimizer.zero_grad()
         total = None
         for micro in micros[:, share]:
-            if self.use_ctx_cache:
-                batch = make_pretrain_batch_cached(ctx_ids, ctx_mask, micro, pairs)
-            else:
-                batch = make_pretrain_batch(self.graph, micro, self.sampling, True,
-                                            generators=sampling)
-            out = self.model(
-                self.feat_tables, batch, deterministic=False, compute_nfr=True,
-                generator=generator, mesh=mesh,
-            )
-            (out.loss / accum).backward()
+            with span("batch"):
+                if self.use_ctx_cache:
+                    batch = make_pretrain_batch_cached(ctx_ids, ctx_mask, micro, pairs)
+                else:
+                    batch = make_pretrain_batch(self.graph, micro, self.sampling, True,
+                                                generators=sampling)
+            with span("forward", lanes=b * (2 + p)):
+                out = self.model(
+                    self.feat_tables, batch, deterministic=False, compute_nfr=True,
+                    generator=generator, mesh=mesh,
+                )
+            with span("backward"):
+                (out.loss / accum).backward()
             part = torch.stack([out.loss, out.gsr_loss, out.nfr_loss]).detach()
             total = part if total is None else total + part
         all_reduce_grads(mesh, self.model.parameters())
@@ -380,10 +394,11 @@ class PMGTTask:
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
         """One optimizer step on ``batch`` = (targets, generator) from
         ``train_batches``. Returns the step's mean loss, gsr and nfr as
-        device scalars."""
+        device scalars. The whole is a ``step`` span."""
         targets, generator = batch
-        metrics = self.accumulate_gradients(targets, generator)
-        self.optimizer.step()
+        with span("step", examples=int(targets.shape[0])):
+            metrics = self.accumulate_gradients(targets, generator)
+            self.optimizer.step()
         return metrics
 
     def train_epoch(self, epoch: int) -> torch.Tensor:

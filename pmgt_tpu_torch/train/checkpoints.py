@@ -30,6 +30,7 @@ from typing import Any, Optional, Sequence, Union
 import torch
 
 from pmgt_tpu_torch.core.mesh import current_mesh
+from pmgt_tpu_torch.core.tracing import span
 
 CKPT_FILE = "state.pt"
 
@@ -72,20 +73,21 @@ def save_checkpoint(path: Union[str, Sequence[str]], payload: Any) -> None:
     """Save ``payload`` at ``path``, or at each of a sequence of paths,
     atomically replacing any checkpoint there. The payload is moved to the
     CPU and serialized once, whatever the number of paths. Only rank 0
-    of a group writes."""
+    of a group writes, in a ``checkpoint`` span (``core/tracing.py``)."""
     if not current_mesh().is_primary:
         return
     paths = [path] if isinstance(path, str) else list(path)
-    buf = io.BytesIO()
-    torch.save(_to_cpu(payload), buf)
-    for p in paths:
-        p = os.path.abspath(p)
-        tmp = p + ".tmp_new"
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        with open(os.path.join(tmp, CKPT_FILE), "wb") as f:
-            f.write(buf.getbuffer())
-        _finalize(tmp, p)
+    with span("checkpoint"):
+        buf = io.BytesIO()
+        torch.save(_to_cpu(payload), buf)
+        for p in paths:
+            p = os.path.abspath(p)
+            tmp = p + ".tmp_new"
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            with open(os.path.join(tmp, CKPT_FILE), "wb") as f:
+                f.write(buf.getbuffer())
+            _finalize(tmp, p)
 
 
 def restore_checkpoint(path: str) -> Any:

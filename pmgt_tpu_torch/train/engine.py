@@ -17,6 +17,11 @@ the preemption flag is max-reduced at each evaluation point (a signal to
 one rank stops every rank after the same epoch; without it the others
 would wait in the next collective), and ``fit`` ends with a barrier, so no
 rank reads a checkpoint before rank 0 has written it.
+
+Under a profiler session (``--profile-dir``) each epoch's refresh and
+steps and each evaluation is a span of ``core/tracing.py``: ``epoch``,
+``evaluate`` (each checkpoint save is ``train/checkpoints.py``'s
+``checkpoint``).
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from pmgt_tpu_torch.core.mesh import any_rank, barrier, broadcast_object, current_mesh
+from pmgt_tpu_torch.core.tracing import span
 from pmgt_tpu_torch.train.checkpoints import (
     checkpoint_exists,
     restore_checkpoint,
@@ -258,7 +264,8 @@ def fit(
     val_metrics: Dict[str, float] = {}
 
     if eval_init and start_epoch == 0:
-        init_metrics = task.evaluate("valid")
+        with span("evaluate"):
+            init_metrics = task.evaluate("valid")
         if monitor not in init_metrics:
             raise KeyError(
                 f"early criterion {monitor!r} not in metrics {sorted(init_metrics)}"
@@ -289,9 +296,10 @@ def fit(
             epoch_start = time.time()
             outs = []
             for e in range(e0, e0 + g):
-                if on_epoch_start is not None:
-                    on_epoch_start(e)
-                outs.append(task.train_epoch(e))
+                with span("epoch"):
+                    if on_epoch_start is not None:
+                        on_epoch_start(e)
+                    outs.append(task.train_epoch(e))
             epoch_losses = [_fetch(x) for x in outs]  # the group's one fetch
             batch_counts = [len(r) for r in epoch_losses]
 
@@ -312,7 +320,8 @@ def fit(
             train_loss = float(last_row.mean()) if len(last_row) else float("nan")
             tail_loss = float(last_row[-100:].mean()) if len(last_row) else float("nan")
 
-            val_metrics = task.evaluate("valid")
+            with span("evaluate"):
+                val_metrics = task.evaluate("valid")
             eval_count += 1
             elapsed = time.time() - epoch_start
             logged = {
@@ -386,7 +395,7 @@ def fit(
     results["best"] = float(best_value) if best_value is not None else float("nan")
 
     if swa is not None and swa.avg is not None:
-        with _parameters_swapped(task.model, swa.avg):
+        with _parameters_swapped(task.model, swa.avg), span("evaluate"):
             swa_metrics = task.evaluate("valid")
         results.update({f"swa/{k}": v for k, v in swa_metrics.items()})
         if ckpt_dir is not None:

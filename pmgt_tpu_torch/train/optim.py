@@ -11,7 +11,9 @@
   groups, or SGD, behind an optional global-norm clip computed as optax's
   ``clip_by_global_norm`` does (``g * max_norm / |g|`` when ``|g| >=
   max_norm``; no epsilon, unlike ``torch.nn.utils.clip_grad_norm_``).
-  The clip and the step stay on the device: no host sync.
+  The clip and the step stay on the device: no host sync. ``zero_grad``
+  and ``step`` (the clip included) are each an ``optimizer`` span
+  (``core/tracing.py``).
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 from torch import nn
+
+from pmgt_tpu_torch.core.tracing import span
 
 Schedule = Callable[[int], float]
 
@@ -135,7 +139,8 @@ class Optimizer:
         self.count = int(state["count"])
 
     def zero_grad(self) -> None:
-        self.inner.zero_grad(set_to_none=True)
+        with span("optimizer"):
+            self.inner.zero_grad(set_to_none=True)
 
     @torch.no_grad()
     def clip(self) -> None:
@@ -151,11 +156,12 @@ class Optimizer:
             g.copy_(torch.where(keep, g, g / norm * self.max_norm))
 
     def step(self) -> None:
-        self.clip()
-        lr = float(self.schedule(self.count))
-        for group in self.inner.param_groups:
-            group["lr"] = lr
-        self.inner.step()
+        with span("optimizer"):
+            self.clip()
+            lr = float(self.schedule(self.count))
+            for group in self.inner.param_groups:
+                group["lr"] = lr
+            self.inner.step()
         self.count += 1
 
 

@@ -30,6 +30,7 @@ import torch
 
 from pmgt_tpu.ops import dual_attention_pallas as jax_dual_attention_pallas
 from pmgt_tpu.ops.dual_attention import _fused, _pallas_backward, _pallas_forward
+from pmgt_tpu_torch.core import tracing
 from pmgt_tpu_torch.ops import dual_attention_pallas
 from pmgt_tpu_torch.ops.dual_attention import (
     DualAttentionBm,
@@ -221,12 +222,11 @@ def test_raw_bm_launchers_refuse_grad_and_count_only_kernels():
         dual_attention_bm_forward(qg, fk, fv, fc, mask_bs)
     with pytest.raises(RuntimeError, match="no autograd node"):
         dual_attention_bm_backward(qg, fk, fv, fc, mask_bs, None, None, fg)
-    before = (dual_attention_bm_forward.launches, dual_attention_bm_backward.launches)
+    before = tracing.counters()
     with torch.no_grad():
         dual_attention_bm_forward(fq, fk, fv, fc, mask_bs)
         dual_attention_bm_backward(fq, fk, fv, fc, mask_bs, None, None, fg)
-    assert (dual_attention_bm_forward.launches,
-            dual_attention_bm_backward.launches) == before
+    assert tracing.counters() == before
 
 
 # (B, h, S, d) on the card: B·h = 3072 and a ragged 37 at h = 1, d = 128,

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from pmgt_tpu.ops.dual_attention import _fused_sm, _pallas_backward_sm
+from pmgt_tpu_torch.core import tracing
 from pmgt_tpu_torch.models.pmgt import dual_attention_plain
 from pmgt_tpu_torch.ops.dual_attention import (
     DualAttentionSm,
@@ -164,14 +165,14 @@ def test_raw_launchers_refuse_grad():
         dual_attention_sm_forward(qg, k, v, c, mask)
     with pytest.raises(RuntimeError, match="no autograd node"):
         dual_attention_sm_backward(qg, k, v, c, mask, None, None, g)
-    before = (dual_attention_sm.launches, dual_attention_sm_backward.launches)
+    before = tracing.counters()
     with torch.no_grad():  # without grad the raw launchers run (plain on CPU)
         out = dual_attention_sm_forward(qg, k, v, c, mask)
         grads = dual_attention_sm_backward(qg, k, v, c, mask, None, None, g)
     torch.testing.assert_close(out, dual_attention_sm_reference(q, k, v, c, mask))
     assert len(grads) == 4
     # The counters count kernel launches only.
-    assert (dual_attention_sm.launches, dual_attention_sm_backward.launches) == before
+    assert tracing.counters() == before
 
 
 # (N, S, d) on the card: the training shape and a ragged N, then edges of

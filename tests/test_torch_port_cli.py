@@ -223,6 +223,19 @@ def test_published_options_run_one_cpu_step(tmp_path, data_dir, option):
         assert any(f.endswith(".pt.trace.json") for f in os.listdir(tmp_path / "prof"))
 
 
+def test_profile_dir_trace_holds_the_programs_spans(tmp_path, data_dir):
+    """``--mode train --profile-dir`` on the CPU: the trace holds the
+    program's ``pmgt:`` spans of the engine, the refresh and the step."""
+    prof = tmp_path / "prof"
+    main(_cmd(data_dir, str(tmp_path / "logs"), "--profile-dir", str(prof),
+              "--num-epochs", "1", "--train-batch-size", "96"))
+    (name,) = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+    with open(prof / name) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"pmgt:step", "pmgt:epoch", "pmgt:evaluate", "pmgt:checkpoint", "pmgt:forward",
+            "pmgt:backward", "pmgt:optimizer", "pmgt:batch", "pmgt:refresh"} <= names
+
+
 TRAINING_SCRIPTS = ("run_pmgt", "run_pmgt_ncf", "run_ncf", "run_dcn", "run_gmf", "run_mlp",
                     "run_neumf_pre")
 

@@ -197,7 +197,7 @@ def test_aux_outputs_match_flax():
 
 def _count_kernel_calls(monkeypatch):
     """Count the forward and backward launches of the kernel route on the
-    CPU (the counters on ``dual_attention_sm`` count card launches only)."""
+    CPU (the launch counters of ``core/tracing.py`` count card launches only)."""
     calls = {"fwd": 0, "bwd": 0}
     fwd, bwd = da.dual_attention_sm_forward, da.dual_attention_sm_backward
 
