@@ -122,7 +122,8 @@ Phases (any failure raises and the script exits non-zero):
     printed); epoch, evaluate and export times.
 11. K1 at the downstream lanes, f32 without keep masks (checked with
     phase 2): N=4,000 (a PMGT_NCF evaluation chunk: 4 users × 1,000
-    candidates) and N=65,536 (a serving tile: 64 users × 1,024 items); K2
+    candidates) and N=65,536 (the largest call of the serving item stage:
+    64 users × 1,024 items); K2
     at N=256 (a PMGT_NCF training step) is among phase 5's shapes. The
     published configurations' bf16 operands are checked with phases 2 and
     5: K1 at d=32, N=384 (PMGT's training lanes: 32 targets + 320 pairs +
@@ -143,8 +144,9 @@ Phases (any failure raises and the script exits non-zero):
     all of the epoch's examples, dropout off, lower after the epoch than
     before), evaluate, serve
     the top 100 of every user; K1 == K2 == 5 a training step, K1 == 5 an
-    evaluation chunk and a serving tile, counts zeroed just before and
-    read just after each. The same evaluation and serving on the plain
+    evaluation chunk and a call of the serving item stage (once a batch of
+    64 users over the whole catalogue, in calls of at most 64 × 1,024
+    items), counts zeroed just before and read just after each. The same evaluation and serving on the plain
     attention route from the same weights and contexts: n20 and r20
     equal, loss within 1e-5, served scores within 1e-5 and every id the
     two routes serve differently a near-tie (the plain route's id scores,
@@ -1484,6 +1486,17 @@ def timed(fn):
     return out, (time.perf_counter() - t) * 1e3
 
 
+def serve_encoder_calls(num_users: int, num_items: int, user_batch: int = 64,
+                        item_chunk: int = 1024, k: int = 100) -> int:
+    """The encoder calls of PMGT_NCF's ``export_topk(k, user_batch,
+    item_chunk)``: each batch of users (the last padded to a whole one)
+    runs the scorer's item stage once over the catalogue, in calls of at
+    most batch × chunk items."""
+    batch = min(user_batch, num_users)
+    chunk = min(max(item_chunk, min(k, num_items)), num_items)
+    return math.ceil(num_users / batch) * math.ceil(num_items / (batch * chunk))
+
+
 def serve_checks(task, out: dict) -> dict:
     """Every served id is an item or -1 (only on a -inf slot), and no
     training positive is served."""
@@ -1601,7 +1614,8 @@ def run_pmgt_ncf(art_cut) -> dict:
     TG-shape graph and feature tables with the first 1,024 users'
     interactions: 1 epoch (K1 == K2 == 5 a step), evaluate (K1 == 5 a
     chunk of 4 users × 1,000 candidates) and serve the top 100 of every
-    user (K1 == 5 a tile of 64 users × 1,024 items); then the same
+    user (K1 == 5 a call of the item stage: ``serve_encoder_calls``); then
+    the same
     evaluation and serving on the plain attention route from the same
     weights and contexts, and 3 training steps on each route."""
     import torch
@@ -1634,6 +1648,7 @@ def run_pmgt_ncf(art_cut) -> dict:
     out, serve_ms = timed(lambda: task.export_topk(k=100, user_batch=64, item_chunk=1024))
     serve_launches = read_launches()
     tiles = math.ceil(art_cut.num_users / 64) * math.ceil(art_cut.num_items / 1024)
+    encoder_calls = serve_encoder_calls(art_cut.num_users, art_cut.num_items)
     served = serve_checks(task, out)
 
     # the plain route on the same weights, contexts and candidates
@@ -1704,7 +1719,7 @@ def run_pmgt_ncf(art_cut) -> dict:
 
     want = {"train": {"k1": layers * steps, "k2": layers * steps, "k3": 0, "k4": 0},
             "evaluate": {"k1": layers * chunks, "k2": 0, "k3": 0, "k4": 0},
-            "serve": {"k1": layers * tiles, "k2": 0, "k3": 0, "k4": 0}}
+            "serve": {"k1": layers * encoder_calls, "k2": 0, "k3": 0, "k4": 0}}
     launches = {"train": train_launches, "evaluate": eval_launches, "serve": serve_launches}
     metrics_ok = bool(np.isfinite(list(val.values())).all())
     row = {
@@ -1717,7 +1732,8 @@ def run_pmgt_ncf(art_cut) -> dict:
         "eval_ctx_draw_ms": eval_draw_ms, "valid": val, "evaluate_ms": eval_ms,
         "eval_chunks": chunks, "eval_lanes_per_chunk": lanes,
         "evaluate_plain_ms": eval_plain_ms, "valid_plain": val_p,
-        "serve_tiles": tiles, "serve_lanes_per_tile": 64 * 1024, "serve_ms": serve_ms,
+        "serve_tiles": tiles, "serve_pairs_per_tile": 64 * 1024,
+        "serve_encoder_calls": encoder_calls, "serve_ms": serve_ms,
         "serve_plain_ms": serve_plain_ms, "served": served,
         "launches": launches, "expected_launches": want,
         "route_check": route, "train_route_check": train_route,
@@ -1823,12 +1839,12 @@ def run_downstream_cli(art_cut, data_root: str, emb_path: str, emb32_path: str) 
     data = split_interactions(TrainArgs(seed=0), art_cut)
     steps = len(data["train_data"].pairs) * 2 // 256
     chunk = lambda d: math.ceil(len(d.unique_users) / 4)  # noqa: E731
-    tiles = math.ceil(art_cut.num_users / 64) * math.ceil(art_cut.num_items / 1024)
+    encoder_calls = serve_encoder_calls(art_cut.num_users, art_cut.num_items)
     want = {
         "train-pmgt-ncf train": {"k1": 5 * (steps + chunk(data["valid_data"])
                                            + chunk(data["test_data"])), "k2": 5 * steps},
         "train-pmgt-ncf eval": {"k1": 5 * chunk(data["test_data"]), "k2": 0},
-        "train-pmgt-ncf inference": {"k1": 5 * tiles, "k2": 0},
+        "train-pmgt-ncf inference": {"k1": 5 * encoder_calls, "k2": 0},
     }
     npz_ok = {}
     for cmd in ("train-ncf", "train-pmgt-ncf"):
@@ -2110,10 +2126,11 @@ def run_published_pmgt_ncf(art_cut, data_dir: str, root: str) -> dict:
     steps = len(train_data.pairs) * 2 // 128
     chunk = lambda d: math.ceil(len(d.unique_users) / 4)  # noqa: E731
     tiles = math.ceil(art_cut.num_users / 64) * math.ceil(art_cut.num_items / 1024)
+    encoder_calls = serve_encoder_calls(art_cut.num_users, art_cut.num_items)
     none = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
     want = {"train": {**none, "k1": 5 * (steps + chunk(data["valid_data"])
                                          + chunk(data["test_data"])), "k2": 5 * steps},
-            "inference_kernel": {**none, "k1": 5 * tiles},
+            "inference_kernel": {**none, "k1": 5 * encoder_calls},
             "inference_plain": none, "eval_plain": none}
 
     class _Task:  # what serve_checks reads
@@ -2137,7 +2154,8 @@ def run_published_pmgt_ncf(art_cut, data_dir: str, root: str) -> dict:
     row = {"phase": "published_pmgt_ncf", "script": "scripts/run_pmgt_ncf.sh (1 of its 30 "
            "epochs)", "data": f"interactions of the first {PMGT_NCF_USERS} users",
            "invocations": invocations, "expected_launches": want, "steps": steps,
-           "serve_tiles": tiles, "test_kernel": test_k, "test_plain_same_params": test_p,
+           "serve_tiles": tiles, "serve_encoder_calls": encoder_calls, "test_kernel": test_k,
+           "test_plain_same_params": test_p,
            "routes_ranking_max_gap": n_gap, "routes_served": close, "served": checks_k,
            "checks": checks, "ok": all(checks.values())}
     emit(row)
@@ -4615,11 +4633,12 @@ def main() -> int:
     # K1 at the training lanes (256 targets + 2,560 pairs + 256 masked)
     checks += [check_k1(6, 3072, 128, torch.float32, km) for km in (False, True)]
     # K1 at PMGT_NCF's lanes: an evaluation chunk (4 users x 1,000
-    # candidates) and a serving tile (64 users x 1,024 items), no dropout
+    # candidates) and the largest call of the serving item stage (64 users
+    # x 1,024 items), no dropout
     checks += [check_k1(6, n, 128, torch.float32, False) for n in (4000, 65536)]
     # bf16 at the published configurations: PMGT (d = 32, 384 training
     # lanes: 32 targets + 320 pairs + 32 masked) and PMGT_NCF (an evaluation
-    # chunk and a serving tile)
+    # chunk and the largest serving item-stage call)
     checks += [check_k1(6, 384, 32, torch.bfloat16, km) for km in (False, True)]
     checks += [check_k1(6, n, 128, torch.bfloat16, False) for n in (4000, 65536)]
     # bf16 at the PMGT search space's shapes (hp-tuning: batch 32, P = 10):

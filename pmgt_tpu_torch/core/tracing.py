@@ -15,7 +15,7 @@ While a session is on, ``span(name, **counts)``
   start and end in ns on the clock the profiler stamps its events with
   (``time.time_ns()``, Unix time), its own id, its parent span's id, the
   id of its root span (one id per step, request or epoch) and its counts
-  (``examples``, ``lanes``, ``nodes``, ``users``, ``items``).
+  (``examples``, ``lanes``, ``nodes``, ``users``, ``items``, ``pairs``).
 
 A full buffer drops later records and counts them (``dropped()``);
 ``records()`` and ``clear()`` read and reset it. Nothing here synchronises
@@ -41,9 +41,11 @@ Span names and their counts:
   with ``contexts`` (``nodes``, a chunk of ``sample_all_contexts``),
   ``pairs`` (``nodes``, a chunk of ``sample_all_pairs``) and PMGT_NCF's
   ``negatives`` inside;
-- serving (``tasks/interaction_base.py``): ``serve`` (``users``), ``tile``
-  (``items``: the catalogue items of the tile that exist), inside it
-  ``forward`` (``lanes``: users × tile) and ``merge``;
+- serving (``tasks/interaction_base.py``): ``serve`` (``users``), inside
+  it ``forward`` (``lanes``: the catalogue items a call of the scorer's
+  item stage encodes) and ``tile`` (``items``: the catalogue items of the
+  tile that exist), inside that ``towers`` (``pairs``: users × tile) and
+  ``merge``;
 - the engine (``train/engine.py``): ``epoch``, ``evaluate``; and each
   save of ``train/checkpoints.py``: ``checkpoint``.
 """

@@ -13,6 +13,11 @@ dtype; under bf16 its CLS row meets the f32 user embedding in a
 concatenation that promotes to f32, as JAX's does, so the towers and the
 logits stay f32.
 
+``forward`` is ``towers`` over ``encode_items``: the item stage (the
+encoder; deterministic, its CLS state is a function of the item alone)
+and the pair stage (the NeuMF towers). Serving runs the item stage once
+per catalogue item and the pair stage per (user, item) pair.
+
 ``init_weights``: the encoder as ``PMGTForPreTraining.init_weights`` (flax
 normal(initializer_range) kernels and embeddings, zero biases, unit
 LayerNorm scales), embeddings N(0, 0.01), tower kernels xavier-uniform,
@@ -93,6 +98,52 @@ class PMGT_NCF(nn.Module):
         them as ``proj_tables`` to reuse one projection across calls."""
         return self.bert.project_tables(feat_tables)
 
+    def encode_items(
+        self,
+        feat_tables: Sequence[torch.Tensor],
+        item_node_ids: torch.Tensor,  # [B, S] neighbourhood sequences
+        item_attention_mask: torch.Tensor,  # [B, S]
+        deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
+        proj_tables: Optional[Sequence[torch.Tensor]] = None,
+    ) -> torch.Tensor:
+        """The item stage: the CLS states [B, H] of the items' encoded
+        neighbourhoods, in the encoder's compute dtype. It draws the
+        encoder's dropout."""
+        if self.config.fusion_strategy == "gather_rows":
+            feats = tables_rows(feat_tables, item_node_ids, self.bert.dtype)
+            projected = False
+        else:
+            if proj_tables is None:
+                proj_tables = self.project_tables(feat_tables)
+            feats = tables_rows(proj_tables, item_node_ids)
+            projected = True
+        hidden = self.bert(feats, item_attention_mask, deterministic, projected,
+                           generator=generator)
+        return hidden[:, 0]
+
+    def towers(
+        self,
+        user: torch.Tensor,  # [B]
+        item_cls: torch.Tensor,  # [B, H] rows of ``encode_items``
+        item: Optional[torch.Tensor],  # [B] raw item ids (GMF; read by NeuMF-end only)
+        deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """The pair stage: logits [B] of (user, item) pairs from the items'
+        CLS states. It draws the embedding dropout, each tower layer's,
+        then the GMF product's."""
+        x = torch.cat([self.mlp_user_embeddings(user), item_cls], dim=-1)
+        x = dropout(x, self.emb_dropout, deterministic, generator)
+        for layer in self.mlp_layers:
+            x = torch.relu(dropout(layer(x), self.dropout, deterministic, generator))
+        if self.model == "NeuMF-end":
+            item_idx = torch.clamp(item, 0, self.item_num - 1)
+            gmf = self.gmf_user_embeddings(user) * self.gmf_item_embeddings(item_idx)
+            gmf = dropout(gmf, self.emb_dropout, deterministic, generator)
+            x = torch.cat([gmf, x], dim=-1)
+        return self.predict_layer(x)[..., 0]
+
     def forward(
         self,
         feat_tables: Sequence[torch.Tensor],
@@ -104,25 +155,10 @@ class PMGT_NCF(nn.Module):
         generator: Optional[torch.Generator] = None,
         proj_tables: Optional[Sequence[torch.Tensor]] = None,
     ) -> torch.Tensor:
-        """Logits [B]."""
-        if self.config.fusion_strategy == "gather_rows":
-            feats = tables_rows(feat_tables, item_node_ids, self.bert.dtype)
-            projected = False
-        else:
-            if proj_tables is None:
-                proj_tables = self.project_tables(feat_tables)
-            feats = tables_rows(proj_tables, item_node_ids)
-            projected = True
-        hidden = self.bert(feats, item_attention_mask, deterministic, projected,
-                           generator=generator)
-        x = torch.cat([self.mlp_user_embeddings(user), hidden[:, 0]], dim=-1)
-        x = dropout(x, self.emb_dropout, deterministic, generator)
-        for layer in self.mlp_layers:
-            x = torch.relu(dropout(layer(x), self.dropout, deterministic, generator))
-        if self.model == "NeuMF-end":
-            item_idx = item if item is not None else item_node_ids[:, 0] - 2
-            item_idx = torch.clamp(item_idx, 0, self.item_num - 1)
-            gmf = self.gmf_user_embeddings(user) * self.gmf_item_embeddings(item_idx)
-            gmf = dropout(gmf, self.emb_dropout, deterministic, generator)
-            x = torch.cat([gmf, x], dim=-1)
-        return self.predict_layer(x)[..., 0]
+        """Logits [B]: ``towers`` over ``encode_items``. Without ``item``,
+        GMF takes node id - 2."""
+        item_cls = self.encode_items(feat_tables, item_node_ids, item_attention_mask,
+                                     deterministic, generator, proj_tables)
+        if item is None and self.model == "NeuMF-end":
+            item = item_node_ids[:, 0] - 2
+        return self.towers(user, item_cls, item, deterministic, generator)

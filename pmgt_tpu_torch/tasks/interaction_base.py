@@ -3,7 +3,9 @@ PMGT_NCF (counterpart of ``pmgt_tpu/tasks/interaction_base.py``).
 
 - ``InteractionTaskBase.export_topk``: the full-catalogue top-k of every
   user, training positives excluded by default. Users go in batches, the
-  catalogue in chunks; each chunk's scores are merged into the running
+  catalogue in chunks. A batch runs the scorer's item stage (``Scorer``;
+  PMGT_NCF's encoder) once over the catalogue, then each chunk's pairs
+  through its pair stage; each chunk's scores are merged into the running
   top-k with the carry first, by a stable descending sort, so ties resolve
   to the lower item id as ``jax.lax.top_k`` resolves them. Excluded and
   past-the-end items score -inf (a mask, never an out-of-range scatter),
@@ -76,8 +78,22 @@ logger = logging.getLogger("pmgt_tpu_torch")
 
 TOPK = 100  # candidates ranked per user (reference ncf/trainer.py:213-214)
 
-# Scores (user ids [P], item ids [P]) → logits [P], deterministic.
-Scorer = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+class Scorer:
+    """The deterministic scoring of (user, item) pairs, in two stages:
+    ``items(ids [N])`` the work that depends on the item alone, done once
+    for a set of items (its rows, [N, ...]), and ``pairs(users [P], ids [P],
+    rows [P, ...])`` the logits [P] of the pairs from their items' rows.
+    ``items`` is None where the model has no such stage, and ``rows`` is
+    then None. ``score(users, ids)`` runs both over the pairs' items."""
+
+    def __init__(self, pairs: Callable[..., torch.Tensor],
+                 items: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
+        self.pairs = pairs
+        self.items = items
+
+    def __call__(self, users: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        return self.pairs(users, ids, None if self.items is None else self.items(ids))
 
 
 def seeded(seed: int, device) -> torch.Generator:
@@ -250,24 +266,27 @@ class InteractionTaskBase:
     # ------------------------------------------------------------------
     def scorer(self) -> Scorer:
         model = self.model
-        return lambda users, items: model(users, items, deterministic=True)
+        return Scorer(lambda users, ids, rows: model(users, ids, deterministic=True))
 
-    def _merge_chunk(self, score: Scorer, users, pos, start: int, chunk: int,
+    def _merge_chunk(self, score: Scorer, rows, users, pos, start: int, chunk: int,
                      k: int, exclude: bool, carry):
-        """Score the users [B] against items [start, start + chunk) and
+        """Score the users [B] against items [start, start + chunk), whose
+        item-stage rows are ``rows`` (all the catalogue's, or None), and
         merge them into ``carry`` = (ids [B, k], scores [B, k]). Spans: the
         tile (items: those of the catalogue, past-the-end padding left out),
-        inside it ``forward`` (the scoring of its users × chunk lanes) and
-        ``merge`` (the rest)."""
+        inside it ``towers`` (the pair stage over its users × chunk pairs)
+        and ``merge`` (the rest)."""
         data = self.train_data
         dev = users.device
         b = users.shape[0]
         with span("tile", items=max(min(chunk, int(data.num_items) - start), 0)):
-            with span("forward", lanes=b * chunk):
+            with span("towers", pairs=b * chunk):
                 items = start + torch.arange(chunk, device=dev)
                 u = torch.clamp(users, max=max(data.num_users - 1, 0))[:, None].expand(b, chunk)
                 it = torch.clamp(items, max=data.num_items - 1)[None, :].expand(b, chunk)
-                logits = score(u.reshape(-1), it.reshape(-1)).reshape(b, chunk).float()
+                it = it.reshape(-1)
+                logits = score.pairs(u.reshape(-1), it, None if rows is None else rows[it])
+                logits = logits.reshape(b, chunk).float()
             with span("merge"):
                 neg_inf = torch.tensor(float("-inf"), device=dev)
                 if exclude:
@@ -299,13 +318,26 @@ class InteractionTaskBase:
                     item_chunk: int, exclude_train: bool = True):
         """The top-k (ids [B, k], scores [B, k]) of users [B] (positives
         ``pos`` [B, P]) over the whole catalogue, ``item_chunk`` items at
-        a time (k <= item_chunk <= num_items), in a ``serve`` span."""
+        a time (k <= item_chunk <= num_items), in a ``serve`` span. The
+        scorer's item stage, where it has one, first runs once over the
+        catalogue, in calls of at most B × item_chunk items (a tile's
+        pairs), each in a ``forward`` span (``lanes``: its items); the
+        tiles' pair stages read its rows."""
         b, dev = users.shape[0], users.device
+        num_items = int(self.train_data.num_items)
         with span("serve", users=b):
+            rows = None
+            if score.items is not None:
+                parts = []
+                for s in range(0, num_items, b * item_chunk):
+                    n = min(b * item_chunk, num_items - s)
+                    with span("forward", lanes=n):
+                        parts.append(score.items(torch.arange(s, s + n, device=dev)))
+                rows = parts[0] if len(parts) == 1 else torch.cat(parts)
             carry = (torch.zeros(b, k, dtype=torch.int64, device=dev),
                      torch.full((b, k), float("-inf"), device=dev))
-            for start in range(0, int(self.train_data.num_items), item_chunk):
-                carry = self._merge_chunk(score, users, pos, start, item_chunk, k,
+            for start in range(0, num_items, item_chunk):
+                carry = self._merge_chunk(score, rows, users, pos, start, item_chunk, k,
                                           exclude_train, carry)
         return carry
 

@@ -13,11 +13,12 @@ whatever the training schedule.
 
 Evaluation is the NCF ranking protocol in chunks of ``max(test_batch_size
 // 64, 1)`` users, one encoder call over the chunk's candidates each;
-serving scores tiles of ``serve_user_batch`` users × ``serve_item_chunk``
-items (64 × 1024 by default), one encoder call each. The encoder runs the
-hand-written dual-attention kernels on the card (K1 forward, five launches
-a call; K2 backward, five a training step) and their plain versions on the
-CPU. Unlike the JAX task, gradients honour ``accumulation_step``.
+serving encodes each catalogue item once a call of ``serve_users`` (the
+scorer's item stage), then scores tiles of ``serve_user_batch`` users ×
+``serve_item_chunk`` items (64 × 1024 by default) through the towers. The
+encoder runs the hand-written dual-attention kernels on the card (K1
+forward, five launches a call; K2 backward, five a training step) and
+their plain versions on the CPU. Unlike the JAX task, gradients honour ``accumulation_step``.
 ``mp_enabled`` runs the encoder in bf16 (``PMGTConfig.dtype``) with the
 feature tables stored in bf16 unless ``feat_tables_dtype`` says otherwise,
 as in the PMGT task, and so do ``--shard-feat-tables`` and
@@ -170,18 +171,22 @@ class PMGTNCFTask(InteractionTaskBase):
                           deterministic=False, generator=generator)
 
     def scorer(self) -> Scorer:
-        """Items through the encoder over the evaluation contexts; the
-        table projections are made once per scorer."""
+        """The item stage: items through the encoder over the evaluation
+        contexts → their CLS rows, in the encoder's dtype; the pair stage:
+        the towers. The table projections are made once per scorer."""
         ctx = self.eval_ctx()
         proj = (self.model.project_tables(self.feat_tables)
                 if self.config.fusion_strategy == "project_tables" else None)
 
-        def score(users, items):
-            seqs, mask = self._sequences(items, ctx)
-            return self.model(self.feat_tables, users, seqs, mask, item=items,
-                              deterministic=True, proj_tables=proj)
+        def items(ids):
+            seqs, mask = self._sequences(ids, ctx)
+            return self.model.encode_items(self.feat_tables, seqs, mask, deterministic=True,
+                                           proj_tables=proj)
 
-        return score
+        def pairs(users, ids, rows):
+            return self.model.towers(users, rows, ids, deterministic=True)
+
+        return Scorer(pairs, items)
 
     def evaluate(self, split: str = "valid") -> Dict[str, float]:
         return self.ranking_evaluate(split)
@@ -212,9 +217,10 @@ def init_model(args: TrainArgs, ctx: Dict[str, Any], trial=None) -> None:
 
 
 def inference(args: TrainArgs, ctx: Dict[str, Any], registry, run) -> Dict[str, np.ndarray]:
-    """Full-catalogue top-k of every user, items scored through the
-    encoder over the evaluation contexts, in tiles of ``serve_user_batch``
-    × ``serve_item_chunk`` (user, item) lanes."""
+    """Full-catalogue top-k of every user: each batch of
+    ``serve_user_batch`` users encodes the catalogue once over the
+    evaluation contexts, then scores tiles of ``serve_user_batch`` ×
+    ``serve_item_chunk`` (user, item) pairs through the towers."""
     task = ctx["task"]
     restore_eval_params(task, registry, run, args.run_id)
     out = task.export_topk(

@@ -218,7 +218,7 @@ def test_a_pmgt_ncf_step_and_its_refresh(fresh, artifacts):
     assert [r.parent for r in by["optimizer"]] == [step.id, step.id]
 
 
-@pytest.mark.parametrize("users,chunk", [(3, 16), (1, NUM_NODES)])
+@pytest.mark.parametrize("users,chunk", [(3, 16), (1, NUM_NODES), (1, 16)])
 def test_a_serving_request(fresh, artifacts, users, chunk):
     task = _pmgt_ncf_task(artifacts)
     score = task.scorer()
@@ -232,9 +232,18 @@ def test_a_serving_request(fresh, artifacts, users, chunk):
     assert serve.counts == {"users": users} and len(tiles) == -(-NUM_NODES // chunk)
     assert all(t.parent == serve.id and t.root == serve.id for t in tiles)
     assert sum(t.counts["items"] for t in tiles) == NUM_NODES  # the padding left out
-    for kind in ("forward", "merge"):
+    # the item stage: the catalogue encoded once, before the tiles, in calls
+    # of at most a tile's pairs
+    fwd = by["forward"]
+    assert all(r.parent == serve.id and r.end_ns <= min(t.start_ns for t in tiles) for r in fwd)
+    assert sum(r.counts["lanes"] for r in fwd) == NUM_NODES
+    assert all(0 < r.counts["lanes"] <= users * chunk for r in fwd)
+    for kind in ("towers", "merge"):
         assert sorted(r.parent for r in by[kind]) == sorted(t.id for t in tiles)
-    assert all(r.counts == {"lanes": users * chunk} for r in by["forward"])
+    assert all(r.counts == {"pairs": users * chunk} for r in by["towers"])
+    # the encoder lanes under ``serve`` over its tiles' items: each item once
+    assert (sum(r.counts["lanes"] for r in fwd)
+            / sum(t.counts["items"] for t in tiles)) == 1.0
     assert {r.root for r in recs} == {serve.id}
 
 
