@@ -8,7 +8,8 @@ ids and scores are on the host.
 Users come from the seed: ``"users": "permutation"`` walks one shuffled
 order of all users (a sweep), ``"uniform"`` draws each request's users
 independently (online traffic). The mix names its rate (``rate_metric``):
-users whose top-k reached the host, per window second.
+users whose top-k reached the host, per window second. A traced
+sub-window counts its ``users`` for the same rate per layer.
 """
 from __future__ import annotations
 
@@ -53,11 +54,11 @@ def setup(run) -> dict:
         stream=_Stream(state["raw"].num_users, int(traffic["users_per_request"]),
                        traffic["users"], run.seed),
         k=int(traffic["topk"]), chunk=int(traffic["item_chunk"]), served=[],
+        users_per_request=int(traffic["users_per_request"]),
         rate_metric=traffic["rate_metric"])
     ni = state["raw"].num_nodes
     rows = len(torch.unique(ctx_ids[2:ni + 2]))
-    state["request_flops"] = flops.serve_request_flops(cfg, int(traffic["users_per_request"]), ni,
-                                                       rows)
+    state["request_flops"] = flops.serve_request_flops(cfg, state["users_per_request"], ni, rows)
     # each catalogue item's encoding is needed once a request, whoever asks
     state["kernel_work"] = peaks.attention_calls(cfg, ni, training=False)
     for _ in range(WARM_REQUESTS):
@@ -105,7 +106,8 @@ def traced(state, params: dict):
             with span("request"):
                 _request(state)
         return n, {"kernel_work": state["kernel_work"], "flops": n * state["request_flops"],
-                   "peak_flops": state["cfg"]["precision"]}
+                   "peak_flops": state["cfg"]["precision"],
+                   "users": n * state["users_per_request"]}
     return run
 
 

@@ -5,10 +5,12 @@ per-epoch context and pair refresh (``on_epoch_start``) and then
 Set-up runs epoch 0 whole: its first three steps, through the window's
 own call and feed, are the ones the plain reference follows from the
 seed's weights; the rest warm every shape up, and every step's draws are
-kept to hold later epochs' against. The window then runs epochs 1, 2, ...
-until ``--seconds`` have passed, and ends in a device sync after the last
-step it counts; its metric, the device's time a step, is read from the
-window's device trace (``run.py``). After it (``tail``) the same calls
+kept to hold later epochs' against. The window then runs whole epochs 1,
+2, ... until ``--seconds`` have passed, and ends in a device sync after
+the last step it counts; its metric, the device's time a step, is read
+from the window's device trace (``run.py``). Whole epochs hold the
+refresh's device work to one refresh in every epoch's steps, however many
+epochs the host's speed fits into the window. After it (``tail``) the same calls
 refresh one more epoch and take its first step from the window's state:
 the reference follows that step from the program's state, and its draws
 have to be fresh.
@@ -120,13 +122,14 @@ def setup(run) -> dict:
             "step_nodes": cfg["train_batch_size"]}
 
 
-def _steps(state, stop, trace: bool):
-    """Run epochs from ``state["epoch"]`` until ``stop(steps, epochs)``;
-    returns (steps, epochs) completed. Traced, each refresh sits between
-    device syncs in its own span."""
+def _steps(state, stop, trace: bool, tick=None):
+    """Run whole epochs from ``state["epoch"]`` until ``stop(epochs)``,
+    asked before each; ``tick()``, where given, is called between steps.
+    Returns the steps completed. Traced, each refresh sits between device
+    syncs in its own span."""
     task = state["task"]
     steps = epochs = 0
-    while not stop(steps, epochs):
+    while not stop(epochs):
         e = state["epoch"]
         if trace:
             common.sync(state["device"])
@@ -142,26 +145,19 @@ def _steps(state, stop, trace: bool):
             else:
                 task.train_step(batch)
             steps += 1
-            if stop(steps, epochs):
-                break
-        else:
-            state["epoch"] += 1
-            epochs += 1
-    return steps, epochs
+            if tick is not None:
+                tick()
+        state["epoch"] += 1
+        epochs += 1
+    return steps
 
 
 def window(state, seconds: float, tick=None) -> dict:
-    """Epochs until ``seconds`` have passed; ``tick()``, where given, is
-    called between steps."""
+    """Whole epochs until ``seconds`` have passed; ``tick()``, where
+    given, is called between steps."""
     common.sync(state["device"])
     t0 = time.perf_counter()
-
-    def stop(steps, epochs):
-        if tick is not None:
-            tick()
-        return time.perf_counter() - t0 >= seconds
-
-    steps, _ = _steps(state, stop, False)
+    steps = _steps(state, lambda epochs: time.perf_counter() - t0 >= seconds, False, tick)
     common.sync(state["device"])
     elapsed = time.perf_counter() - t0
     return {"attempted": steps, "failed": 0, "metrics": {}, "window_s": elapsed}
@@ -171,7 +167,7 @@ def traced(state, params: dict):
     epochs = int(params["trace_epochs"])
 
     def run():
-        steps, _ = _steps(state, lambda s, e: e >= epochs, True)
+        steps = _steps(state, lambda e: e >= epochs, True)
         common.sync(state["device"])
         return steps, {"kernel_work": state["kernel_work"], "flops": steps * state["step_flops"],
                        "peak_flops": state["cfg"]["precision"],

@@ -36,6 +36,31 @@ def test_sound_pretrain_run_is_correct():
     assert result["attempted"] > 0 and result["window_s"] > 0
 
 
+def test_the_pretraining_window_runs_whole_epochs(patch):
+    """The window ends at an epoch's end: each refresh's device work is
+    spread over a whole epoch's steps, however many epochs fit."""
+    from pmgt_tpu_torch.tasks.pmgt_task import PMGTTask
+
+    per_epoch = []
+    start, step = PMGTTask.on_epoch_start, PMGTTask.train_step
+
+    def on_epoch_start(self, epoch):
+        per_epoch.append(0)
+        return start(self, epoch)
+
+    def train_step(self, batch):
+        per_epoch[-1] += 1
+        return step(self, batch)
+
+    patch(PMGTTask, "on_epoch_start", on_epoch_start)
+    patch(PMGTTask, "train_step", train_step)
+    result, checks, _ = tiny.drive("pmgt-tg.pretrain", seconds=0.05)
+    assert correct(checks), checks
+    window = per_epoch[1:-1]  # set-up's epoch 0 first, the tail's refresh and step last
+    assert window and result["attempted"] == sum(window) == per_epoch[0] * len(window)
+    assert per_epoch[-1] == 1
+
+
 @pytest.mark.parametrize("cell", SERVING)
 def test_sound_serving_run_is_correct(cell):
     result, checks, state = tiny.drive(cell, seconds=0.3)

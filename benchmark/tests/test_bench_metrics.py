@@ -29,7 +29,7 @@ def test_shares():
                         (k1, 40 * MS, 40 * MS + 50_000)],
                 spans=[("refresh", 60 * MS, 80 * MS)],
                 counts={"kernel_work": {"k1": calls, "k2": []}, "flops": 67e9, "peak_flops": "float32",
-                        "nodes": 1024})
+                        "nodes": 1024, "users": 256})
     read = {n.split(".")[0]: spec.load_metric_reader(n).read(tr) for n in READERS}
     busy = 20 * MS + 2 * 50_000
     assert read["device_idle"] == pytest.approx(100.0 * (1 - busy / (100 * MS)))
@@ -37,6 +37,7 @@ def test_shares():
     assert read["device_ms_per_step"] == read["device_ms_per_request"] == pytest.approx(busy / 1e6 / 4)
     assert read["refresh_share"] == pytest.approx(20.0)
     assert read["nodes_per_s"] == pytest.approx(1024 / 0.1)
+    assert read["users_per_s"] == pytest.approx(256 / 0.1)
     assert read["mfu"] == pytest.approx(100.0 * 67e9 / (0.1 * peaks.F32_FLOPS))
     # 4 units, each needing two calls' work, over 100 us of K1
     assert read["k1_roofline"] == pytest.approx(100.0 * 4 * 2 * peaks.k1_bound_s(*calls[0]) / 100e-6)

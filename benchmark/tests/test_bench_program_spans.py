@@ -224,7 +224,9 @@ def test_lanes_outside_serving_are_not_counted(program):
 
 
 @pytest.mark.parametrize("cell,want", [
-    ("pmgt_ncf-tg.serve", 64 * 3 * 64 / 150),  # 150 items in three 64-item tiles
+    # 150 items in three 64-item tiles: the program encodes each item once
+    # a request, before the tiles, whatever the users and the tile size
+    ("pmgt_ncf-tg.serve", 1.0),
     ("pmgt_ncf-tg.serve-1user", 1.0),
 ])
 def test_a_tiny_traced_serving_run_reads_its_lanes(cell, want):
@@ -239,6 +241,9 @@ def test_a_tiny_traced_serving_run_reads_its_lanes(cell, want):
         tracing.clear()
     name = "encoder_lanes_per_item." + ("serve" if cell.endswith(".serve") else "online")
     assert result["metrics"][name]["value"] == pytest.approx(want, rel=1e-12)
+    # the users the traced requests served, for users_per_s (tiny.py traces two requests)
+    per_request = spec.find_cell(spec.load_benchmark(), cell).traffic["users_per_request"]
+    assert result["trace"].counts["users"] == 2 * per_request
     assert not any(n.split(".")[0].endswith("_idle_ms") for n in result["metrics"])
 
 

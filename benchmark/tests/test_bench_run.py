@@ -59,10 +59,9 @@ class _Driver:
 def test_device_trace_metrics_come_from_the_profiled_window(monkeypatch):
     """An end-to-end metric whose source is the device trace is read by its
     reader from the whole window, profiled, with the driver ticking
-    between units; a cell without such metrics runs unprofiled."""
+    between units; a cell with such a metric and no card raises."""
     from benchmark.harness import trace as trace_mod
 
-    cell = spec.find_cell(spec.load_benchmark(), "pmgt-tg.pretrain")
     device = [("k", 0, 3_000_000), ("k", 10_000_000, 11_000_000)]
     seen = {"ticks": 0}
 
@@ -76,14 +75,32 @@ def test_device_trace_metrics_come_from_the_profiled_window(monkeypatch):
 
     monkeypatch.setattr(trace_mod, "DeviceTrace", FakeTrace)
     cuda = torch.device("cuda", 0)
-    res = run.timed_window(cell, _Driver(4), {}, 1.0, cuda)
-    assert seen["ticks"] == 4
-    assert res["metrics"]["device_ms_per_step.pretrain"] == pytest.approx(4.0 / 4)
-    with pytest.raises(RuntimeError):
-        run.timed_window(cell, _Driver(0), {}, 1.0, cuda)
-    with pytest.raises(RuntimeError):
-        run.timed_window(cell, _Driver(4), {}, 1.0, torch.device("cpu"))
-    serve = spec.find_cell(spec.load_benchmark(), "pmgt_ncf-tg.serve")
-    seen.clear()
-    assert run.timed_window(serve, _Driver(4), {}, 1.0, cuda)["metrics"] == {"host_rate": 1.0}
-    assert not seen
+    bench = spec.load_benchmark()
+    timed = {c: m["name"] for m in bench["end_to_end"] if m["source"] == "device_trace"
+             for c in m["workloads"]}
+    assert set(timed) == {"pmgt-tg.pretrain", "pmgt_ncf-tg.serve"}
+    for name, metric in timed.items():
+        cell = spec.find_cell(bench, name)
+        seen.update(ticks=0)
+        res = run.timed_window(cell, _Driver(4), {}, 1.0, cuda)
+        assert seen["ticks"] == 4
+        assert res["metrics"][metric] == pytest.approx(4.0 / 4)
+        with pytest.raises(RuntimeError):
+            run.timed_window(cell, _Driver(0), {}, 1.0, cuda)
+        with pytest.raises(RuntimeError):
+            run.timed_window(cell, _Driver(4), {}, 1.0, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("name", ["pmgt_ncf-tg.serve-1user", "pmgt_ncf-tg.train"])
+def test_a_cell_timed_on_the_host_runs_unprofiled(monkeypatch, name):
+    """A cell with no end-to-end metric from the device trace runs its
+    window without the profiler, on a machine with or without a card."""
+    from benchmark.harness import trace as trace_mod
+
+    def no_trace(sync):
+        raise AssertionError("the window was profiled")
+
+    monkeypatch.setattr(trace_mod, "DeviceTrace", no_trace)
+    cell = spec.find_cell(spec.load_benchmark(), name)
+    for device in (torch.device("cuda", 0), torch.device("cpu")):
+        assert run.timed_window(cell, _Driver(4), {}, 1.0, device)["metrics"] == {"host_rate": 1.0}

@@ -59,6 +59,31 @@ def test_every_cell_loads(bench, cell):
         assert callable(spec.load_metric_reader(m["name"]).read)
 
 
+def test_each_per_layer_metric_moves_an_end_to_end_metric_of_its_cells(bench):
+    """Every cell a per-layer metric is read in reports the end-to-end
+    metric the per-layer one should move."""
+    cells = [w["name"] for w in bench["workloads"]]
+    e2e = {m["name"]: m for m in bench["end_to_end"]}
+    for m in bench["per_layer"]:
+        mine = m.get("workloads", cells)
+        assert mine and set(mine) <= set(cells), m["name"]
+        moved = e2e[m["moves"]]
+        assert all(spec._in_cell(moved, c) for c in mine), (m["name"], m["moves"])
+
+
+@pytest.mark.parametrize("cell,metric", [("pmgt-tg.pretrain", "device_ms_per_step.pretrain"),
+                                         ("pmgt_ncf-tg.serve", "device_ms_per_request.serve")])
+def test_host_bound_cells_are_held_on_the_cards_time(bench, cell, metric):
+    """Cells whose host rate swings with the shared host are held on the
+    card's busy time a unit, read from the device trace; the host rate is
+    a per-layer metric there."""
+    c = spec.find_cell(bench, cell)
+    assert {m["name"]: m["source"] for m in c.end_to_end} == {metric: "device_trace",
+                                                              "setup_s": "host_clock"}
+    rates = [m for m in c.per_layer if m["source"] == "host_clock" and m["unit"].endswith("/s")]
+    assert rates and all(m["moves"] == metric for m in rates)
+
+
 def test_a_new_cell_is_files_only(tmp_path):
     """A new mix, a new configuration and a new cell of them: data files
     and entries, found with nothing else edited."""
@@ -81,8 +106,9 @@ def test_a_new_cell_is_files_only(tmp_path):
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     c = spec.find_cell(spec.load_benchmark(str(root)), "pmgt_ncf-tg-l3.serve-8user", str(root))
     assert c.config["num_hidden_layers"] == 3 and c.traffic["users_per_request"] == 8
-    assert {m["name"] for m in c.end_to_end} == {"online_users_per_s", "serve_p95_ms", "setup_s"}
-    assert {m["name"] for m in c.per_layer} >= {"mfu.online", "k1_roofline.online"}
+    assert {m["name"] for m in c.end_to_end} == {"serve_p95_ms", "setup_s"}
+    assert {m["name"] for m in c.per_layer} >= {"mfu.online", "k1_roofline.online",
+                                                "users_per_s.online"}
     assert spec.metric_reader_path("k1_roofline.serve").endswith("k1_roofline.py")
 
 
